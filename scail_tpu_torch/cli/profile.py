@@ -1,0 +1,131 @@
+"""Where the time of one request goes, on one NVIDIA GPU.
+
+Builds the engine from the 1.3B YAMLs with random weights (as the sampling
+CLI does without a checkpoint) and profiles, each after one warm-up call:
+
+  * dit        -- one DiT forward at CFG batch 2, 512x896, 81 frames (48,832
+                  tokens): the denoise step of the sampling loop;
+  * vae_encode -- the streamed encode of 81 frames at 512x896;
+  * pose_encode -- the streamed encode of the 2x2-downsampled pose video;
+  * vae_decode -- the streamed decode of 21 latent frames to 81 frames.
+
+Per phase: wall ms, device ms (the sum of kernel and memcpy/memset times that
+torch.profiler reads from CUPTI), device busy share (device ms / wall ms, one
+stream), peak allocated memory, and device ms by group (the two attention
+kernels, GEMMs, convolutions, the rest).  Prints one JSON line per phase and
+writes each phase's kernel table under --out.
+
+  python -m scail_tpu_torch.cli.profile [--out build/profile]
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import time
+
+import torch
+
+ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+PHASES = ("dit", "vae_encode", "pose_encode", "vae_decode")
+# kernel-name substrings by group, first match wins
+GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
+          ("dual_cross_attention", ("dual_cross_kernel",)),
+          ("conv", ("fprop", "dgrad", "wgrad", "conv", "winograd")),
+          ("gemm", ("gemm", "nvjet", "cutlass")),
+          ("copy", ("memcpy", "memset", "copy", "nchwtonhwc", "nhwctonchw")))
+
+
+def _device_field(event) -> str:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return name
+    raise RuntimeError("this torch.profiler has no device time field")
+
+
+def _group(name: str) -> str:
+    low = name.lower()
+    for group, keys in GROUPS:
+        if any(k in low for k in keys):
+            return group
+    return "other"
+
+
+def profile_phase(name, fn, out_dir):
+    """Warm-up, then one profiled call of fn(); returns the phase's record."""
+    from torch.profiler import ProfilerActivity, profile
+
+    fn()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_ms = (time.perf_counter() - t0) * 1e3
+    events = prof.key_averages()
+    field = _device_field(events[0])
+    groups = {}
+    device_ms = 0.0
+    for ev in events:
+        if ev.device_type != torch.autograd.DeviceType.CUDA:
+            continue
+        ms = getattr(ev, field) / 1e3
+        device_ms += ms
+        groups[_group(ev.key)] = groups.get(_group(ev.key), 0.0) + ms
+    if device_ms == 0.0:
+        raise RuntimeError(f"{name}: the profiler recorded no device time")
+    with open(os.path.join(out_dir, f"{name}_kernels.txt"), "w") as f:
+        f.write(events.table(sort_by=field, row_limit=40))
+    return {"phase": name, "wall_ms": wall_ms, "device_ms": device_ms,
+            "busy": device_ms / wall_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
+
+
+def main(argv=None):
+    p = argparse.ArgumentParser("scail_tpu_torch.cli.profile")
+    p.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
+                   help="directory for the per-phase kernel tables")
+    a = p.parse_args(argv)
+    if not torch.cuda.is_available():
+        raise RuntimeError("profiling needs an NVIDIA GPU: CUDA is not available")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    os.makedirs(a.out, exist_ok=True)
+
+    from scail_tpu_torch.cli.arguments import get_args
+    from scail_tpu_torch.engine import VideoDiffusionEngine
+
+    args, model_config = get_args([
+        "--base", os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml"),
+        os.path.join(ROOT, "configs", "sampling", "pose_cli.yaml"), "--device", "cuda"])
+    engine = VideoDiffusionEngine(model_config, args, device="cuda")
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    engine.init_params(gen)
+    dt = engine.network.config.compute_dtype
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(dt)
+
+    T, H, W = 21, 64, 112  # latent of 81 frames at 512x896
+    x, ctx, ref = rnd(2, T, 16, H, W), rnd(2, 512, 4096), rnd(2, 1, 16, H, W)
+    pose, clip = rnd(2, T, 16, H // 2, W // 2), rnd(2, 257, 1280)
+    t = torch.full((2,), 900.0, device="cuda")
+    video, pose_video, z = rnd(1, 81, 3, 512, 896), rnd(1, 81, 3, 256, 448), rnd(1, T, 16, H, W)
+    calls = {
+        "dit": lambda: engine.dit(x, t, ctx, ref_concat=ref, concat_smpl_render=pose,
+                                  image_clip_features=clip),
+        "vae_encode": lambda: engine.encode_first_stage(video, force_encode=True),
+        "pose_encode": lambda: engine.encode_first_stage(pose_video, force_encode=True),
+        "vae_decode": lambda: engine.decode_first_stage(z),
+    }
+    card = torch.cuda.get_device_name(0)
+    for name in PHASES:
+        with torch.inference_mode():
+            rec = profile_phase(name, calls[name], a.out)
+        print(json.dumps(dict(rec, device=card)), flush=True)
+
+
+if __name__ == "__main__":
+    main()

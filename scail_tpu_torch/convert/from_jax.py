@@ -1,0 +1,85 @@
+"""Weight bridge: the JAX package's parameter pytrees (nested dicts of numpy
+arrays) -> the port's state_dicts, so both packages compute the same
+function in the parity tests.
+
+Rules: a pytree path a/b/kernel becomes a.b.weight with the (in, out)
+kernel transposed to nn.Linear's (out, in); every other leaf keeps its name
+and layout.  Stacked (L, ...) layer leaves are split into per-layer modules.
+Convolution kernels move from channels-last to PyTorch's (out, in, *k).
+This module imports no jax: it takes numpy arrays (np.asarray each leaf).
+"""
+
+from __future__ import annotations
+
+from typing import Dict, Iterator, Tuple
+
+import numpy as np
+import torch
+
+
+def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
+    for k, v in tree.items():
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, dict):
+            yield from _flatten(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def _linear_leaf(path: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    parts = path.split("/")
+    if parts[-1] == "kernel":
+        parts[-1] = "weight"
+        arr = np.swapaxes(arr, -1, -2)
+    return ".".join(parts), arr
+
+
+def _tensor(arr: np.ndarray) -> torch.Tensor:
+    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C", copy=True))
+
+
+def _stacked(params, leaf_fn, stack_key: str = "layers",
+             torch_key: str = "layers") -> Dict[str, torch.Tensor]:
+    """Apply leaf_fn to every leaf; split the (L, ...) leaves under stack_key."""
+    sd = {}
+    for path, arr in _flatten(params):
+        if path.startswith(stack_key + "/"):
+            rest = path[len(stack_key) + 1:]
+            for i in range(arr.shape[0]):
+                key, val = leaf_fn(rest, arr[i])
+                sd[f"{torch_key}.{i}.{key}"] = _tensor(val)
+        else:
+            key, val = leaf_fn(path, arr)
+            sd[key] = _tensor(val)
+    return sd
+
+
+def dit_state_dict_from_jax(params, cfg=None) -> Dict[str, torch.Tensor]:
+    """`init_dit_params` / converted-checkpoint pytree -> `DiT.state_dict()`."""
+    return _stacked(params, _linear_leaf)
+
+
+def _conv_leaf(path: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    parts = path.split("/")
+    if parts[-1] == "kernel":
+        parts[-1] = "weight"
+        # (kt, kh, kw, i, o) / (kh, kw, i, o) -> (o, i, kt, kh, kw) / (o, i, kh, kw)
+        nk = arr.ndim - 2
+        arr = arr.transpose(nk + 1, nk, *range(nk))
+    return ".".join(parts), arr
+
+
+def wan_vae_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_wan_vae_params` pytree -> `WanVAEModel.state_dict()`."""
+    return {k: _tensor(v) for k, v in (_conv_leaf(p, a) for p, a in _flatten(params))}
+
+
+def umt5_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_umt5_params` pytree -> `UMT5Encoder.state_dict()`."""
+    return _stacked(params, _linear_leaf)
+
+
+def clip_vision_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_clip_vision_params` pytree -> `ClipVisionTower.state_dict()`."""
+    return _stacked(params, lambda p, a: _conv_leaf(p, a) if p.startswith("patch_embedding")
+                    else _linear_leaf(p, a))

@@ -1,0 +1,135 @@
+"""VideoDiffusionEngine on PyTorch (counterpart of scail_tpu/engine.py).
+
+Holds the DiT, denoiser, sampler, conditioner, CLIP and VAE built from the
+YAML `model:` block through the port's registry, on one explicit
+torch.device, and exposes init_params / encode_first_stage /
+decode_first_stage / network_fn / sample.  Noise comes from an explicit
+torch.Generator.  Training (the loss, shared_step) is not ported.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Dict, Optional, Tuple
+
+import torch
+
+from scail_tpu.utils.misc import default
+from scail_tpu_torch.utils.registry import ensure_imports, instantiate_from_config
+
+
+def resolve_device(device) -> torch.device:
+    """torch.device for `device`; a CUDA device without CUDA raises (there is
+    no silent CPU run)."""
+    dev = torch.device(device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError(f"device {device!r} requested but CUDA is not available")
+    return dev
+
+
+class VideoDiffusionEngine:
+    def __init__(self, model_config: Dict, args=None, device="cuda"):
+        self.device = resolve_device(device)
+        ensure_imports()
+        mc = dict(model_config)
+        self.scale_factor = mc.get("scale_factor", 1.0)
+        self.latent_input = mc.get("latent_input", False)
+        self.use_pose = mc.get("use_pose", False)
+        self.use_i2v_clip = mc.get("use_i2v_clip", False)
+
+        def _flag(name, dflt=False):
+            if args is None:
+                return dflt
+            return args.get(name, dflt) if isinstance(args, dict) else getattr(args, name, dflt)
+
+        if _flag("fp16"):
+            dtype_str = "fp16"
+        elif not _flag("bf16", True):
+            dtype_str = "fp32"
+        else:
+            dtype_str = "bf16"
+        network_config = dict(mc["network_config"])
+        network_config["params"] = dict(network_config.get("params", {}) or {},
+                                        dtype=dtype_str, use_i2v_clip=self.use_i2v_clip)
+        self.network = instantiate_from_config(network_config)
+        self.network.config.check_supported()
+        self.dit = None
+
+        def build(key, cond=True):
+            return instantiate_from_config(mc[key]) if cond and mc.get(key) else None
+
+        self.denoiser = build("denoiser_config")
+        self.sampler = build("sampler_config")
+        self.conditioner = build("conditioner_config")
+        self.i2v_clip = build("i2v_clip_config", self.use_i2v_clip)
+        self.first_stage_model = build("first_stage_config")
+
+    def init_params(self, generator: torch.Generator):
+        """Random-init every sub-model that has no weights (smoke mode).
+        The text encoder keeps its width but is cut to 2 layers, as in the
+        JAX engine: random weights only need shape-correct embeddings."""
+        dit = self.network.build(self.device)
+        dit.init_weights_(generator)
+        self.dit = dit.to(self.network.config.compute_dtype).eval()
+        if self.first_stage_model is not None and self.first_stage_model.model is None:
+            self.first_stage_model.init(generator, device=self.device)
+        if self.i2v_clip is not None and self.i2v_clip.model is None:
+            self.i2v_clip.init(generator, device=self.device)
+        for emb in getattr(self.conditioner, "embedders", []):
+            if getattr(emb, "model", None) is None and hasattr(emb, "init"):
+                cfg = emb.config
+                emb.init(generator, dataclasses.replace(cfg, num_layers=min(cfg.num_layers, 2)),
+                         device=self.device)
+        return self.dit
+
+    def load_checkpoint(self, load_dir: str):
+        raise NotImplementedError(
+            f"loading {load_dir} into the port is not implemented yet (ROADMAP Queue 1: "
+            "real-weight loading waits for the released checkpoints)")
+
+    def network_fn(self):
+        """(x, c_noise, cond, **kw) -> velocity, over the DiT."""
+        cfg = self.network.config
+
+        def fn(x, c_noise, cond: Dict, **kw):
+            if "concat" in cond:
+                x = torch.cat([x, cond["concat"].to(x.dtype)], dim=2)
+            extra = {}
+            if cfg.cfg_embed_dim and kw.get("cfg_scale") is not None:
+                extra["cfg_scale"] = kw["cfg_scale"]
+            return self.dit(x, c_noise, cond["crossattn"], ref_concat=cond["ref_concat"],
+                            concat_smpl_render=cond["concat_smpl_render"],
+                            image_clip_features=cond.get("image_clip_features"),
+                            history_mask=kw.get("history_mask"), **extra)
+
+        return fn
+
+    @torch.inference_mode()
+    def encode_first_stage(self, x, force_encode: bool = False, streamed=None):
+        """x (b, T, 3, H, W) in [-1, 1] -> scaled latent (b, t, 16, h, w)."""
+        if not force_encode and self.latent_input:
+            return x * self.scale_factor
+        z = self.first_stage_model.encode(x, streamed=default(streamed, x.shape[1] > 9))
+        return z * self.scale_factor
+
+    @torch.inference_mode()
+    def decode_first_stage(self, z, streamed=None):
+        z = z / self.scale_factor
+        return self.first_stage_model.decode(z, streamed=default(streamed, z.shape[1] > 3))
+
+    @torch.inference_mode()
+    def sample(self, generator: torch.Generator, cond: Dict, uc: Optional[Dict] = None,
+               batch_size: int = 1, shape: Tuple[int, int, int, int] = None, prefix=None):
+        """Noise from `generator` (on the engine's device), then the sampler's
+        denoise loop; returns the latent in the DiT's compute dtype."""
+        randn = torch.randn((batch_size, *shape), generator=generator, device=self.device,
+                            dtype=torch.float32)
+        if prefix is not None:
+            randn = torch.cat([prefix, randn[:, prefix.shape[1]:]], dim=1)
+        net = self.network_fn()
+
+        def denoise_fn(x, sigma, c, cfg_scale=None, **dkw):
+            return self.denoiser(net, x, sigma, c, **dkw)
+
+        samples = self.sampler(denoise_fn, randn, cond, uc=uc)
+        return samples.to(self.network.config.compute_dtype)

@@ -1,0 +1,84 @@
+"""Shared building blocks (counterpart of scail_tpu/models/common.py)."""
+
+from __future__ import annotations
+
+import math
+
+import numpy as np
+import torch
+import torch.nn.functional as F
+from torch import nn
+
+
+def dense(layer: nn.Linear, x):
+    """x @ W^T + b in x.dtype (the JAX `dense` with an (in, out) kernel).
+    The LoRA and quantized branches of the JAX version are not ported."""
+    if any(hasattr(layer, a) for a in ("lora_a", "qweight", "qweight4")):
+        raise NotImplementedError("LoRA / quantized dense layers are not ported "
+                                  "(ROADMAP Queue 2, K4)")
+    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+    return F.linear(x, layer.weight.to(x.dtype), bias)
+
+
+def gelu_tanh(x):
+    """nn.GELU(approximate='tanh'): DiT MLP, text embedding, umt5 FFN."""
+    return F.gelu(x, approximate="tanh")
+
+
+def gelu_exact(x):
+    """nn.GELU() (erf): the clip projection MLP and the CLIP ViT."""
+    return F.gelu(x)
+
+
+def silu(x):
+    return F.silu(x)
+
+
+def timestep_embedding(timesteps, dim: int, max_period: float = 10000.0,
+                       dtype=torch.float32):
+    """Sinusoidal embedding in [cos | sin] order (cos first)."""
+    half = dim // 2
+    exponent = (-math.log(max_period) * np.arange(half, dtype=np.float64) / half).astype(np.float32)
+    freqs = torch.exp(torch.from_numpy(exponent).to(timesteps.device))
+    args = timesteps.float()[:, None] * freqs[None]
+    emb = torch.cat([torch.cos(args), torch.sin(args)], dim=-1)
+    if dim % 2:
+        emb = torch.cat([emb, torch.zeros_like(emb[:, :1])], dim=-1)
+    return emb.to(dtype)
+
+
+def container(**children) -> nn.Module:
+    """An nn.Module holding the given submodules / parameters, so state_dict
+    paths mirror the JAX parameter trees (a/b/kernel -> a.b.weight)."""
+    m = nn.Module()
+    for k, v in children.items():
+        setattr(m, k, v)
+    return m
+
+
+def parameter(*shape, fill=None, device=None, dtype=torch.float32) -> nn.Parameter:
+    t = torch.empty(*shape, device=device, dtype=dtype)
+    if fill is not None:
+        t.fill_(fill)
+    return nn.Parameter(t, requires_grad=False)
+
+
+def linear(d_in, d_out, bias=True, device=None, dtype=torch.float32) -> nn.Linear:
+    layer = nn.Linear(d_in, d_out, bias=bias, device=device, dtype=dtype)
+    layer.requires_grad_(False)
+    return layer
+
+
+def random_init_(module: nn.Module, generator: torch.Generator, std=0.02) -> None:
+    """Random smoke-mode weights: norm scales/gammas one, biases zero, every
+    other parameter N(0, std) where `std` is a float or a function
+    (name, parameter) -> float."""
+    with torch.no_grad():
+        for name, p in module.named_parameters():
+            leaf = name.rsplit(".", 1)[-1]
+            if leaf in ("scale", "gamma"):
+                p.fill_(1.0)
+            elif leaf == "bias":
+                p.zero_()
+            else:
+                p.normal_(0.0, std(name, p) if callable(std) else std, generator=generator)

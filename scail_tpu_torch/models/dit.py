@@ -1,0 +1,364 @@
+"""The SCAIL DiT on PyTorch (counterpart of scail_tpu/models/dit.py).
+
+One explicit forward over an nn.ModuleList of blocks: patch embed of
+[ref | video] and of the half-resolution pose latent into one fused
+sequence, 3-regime 3D rotary, AdaLN blocks with a shared projection plus
+per-layer tables, full-width q/k RMS norm, flash self-attention with the
+rotary fused into the kernel for q, the summed text + CLIP dual
+cross-attention kernel, a GELU(tanh) MLP, and the AdaLN final layer with
+unpatchify of the video tokens.
+
+Single-device dense path only: the JAX package's STA, Ulysses, ring,
+int8-attention, MoE and remat options raise NotImplementedError.
+State-dict paths mirror the JAX parameter tree (convert/from_jax.py).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Tuple
+
+import torch
+from torch import nn
+
+from scail_tpu_torch.models.common import (container, dense, gelu_exact, gelu_tanh, linear,
+                                           parameter, random_init_, silu, timestep_embedding)
+from scail_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
+from scail_tpu_torch.ops.attention import attention, dual_cross_attention
+from scail_tpu_torch.ops.norms import layer_norm, modulate, rms_norm
+from scail_tpu_torch.ops.rotary import build_scail_rope
+from scail_tpu_torch.utils.registry import register
+
+DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+# attn_impl values of the JAX package that the port does not run yet, with
+# the ROADMAP item that brings each
+UNPORTED_ATTN = {
+    "sta": "ROADMAP Queue 2: STA kernels (K7, K8)",
+    "pallas_int8": "ROADMAP Queue 2: int8 flash attention (K6)",
+    "ulysses": "ROADMAP Queue 1: torch.distributed sequence parallelism (Ulysses)",
+    "ring": "ROADMAP Queue 1: torch.distributed sequence parallelism (ring attention)",
+}
+
+
+@dataclasses.dataclass(frozen=True)
+class DiTConfig:
+    hidden_size: int = 5120
+    num_layers: int = 40
+    num_heads: int = 40
+    inner_hidden_size: int = 13824
+    in_channels: int = 20
+    out_channels: int = 16
+    patch_size: Tuple[int, int, int] = (1, 2, 2)
+    text_dim: int = 4096
+    time_freq_dim: int = 256
+    time_embed_dim: int = 5120
+    clip_dim: int = 1280
+    clip_tokens: int = 257
+    cfg_embed_dim: Optional[int] = None
+    share_adaln: bool = True
+    use_i2v_clip: bool = True
+    qk_ln: bool = True
+    qk_ln_affine: bool = True
+    elementwise_affine: bool = False
+    layernorm_epsilon: float = 1e-6
+    interleaved_rope: bool = True
+    rope_theta: float = 10000.0
+    pose_w_offset: int = 120
+    num_experts: int = 1
+    moe_top_k: int = 2
+    dtype: str = "bfloat16"
+    remat: bool = False
+    attn_impl: str = "auto"
+
+    @property
+    def head_dim(self) -> int:
+        return self.hidden_size // self.num_heads
+
+    @property
+    def compute_dtype(self):
+        return DTYPES[self.dtype]
+
+    @staticmethod
+    def from_network_config(params: dict, **overrides) -> "DiTConfig":
+        """Map a reference `network_config.params` YAML block onto DiTConfig
+        (the same mapping as the JAX package)."""
+        p = dict(params)
+        modules = p.get("modules", {}) or {}
+        adaln = dict(modules.get("adaln_layer_config", {}).get("params", {}) or {})
+        pos = dict(modules.get("pos_embed_config", {}).get("params", {}) or {})
+        kw = dict(
+            hidden_size=p.get("hidden_size", 5120),
+            num_layers=p.get("num_layers", 40),
+            num_heads=p.get("num_attention_heads", 40),
+            inner_hidden_size=p.get("inner_hidden_size") or p.get("hidden_size", 5120) * 4,
+            in_channels=p.get("in_channels", 20),
+            out_channels=p.get("out_channels", 16),
+            patch_size=tuple(p.get("patch_size", (1, 2, 2))),
+            text_dim=p.get("text_dim", 4096),
+            time_freq_dim=p.get("time_freq_dim") or p.get("hidden_size", 5120),
+            time_embed_dim=p.get("time_embed_dim") or p.get("hidden_size", 5120),
+            share_adaln=p.get("share_adaln", False),
+            use_i2v_clip=p.get("use_i2v_clip", False),
+            clip_dim=p.get("clip_dim", 1280),
+            cfg_embed_dim=p.get("cfg_embed_dim"),
+            qk_ln=adaln.get("qk_ln", True),
+            qk_ln_affine=adaln.get("qk_ln_affine", True),
+            elementwise_affine=p.get("elementwise_affine", False),
+            layernorm_epsilon=float(p.get("layernorm_epsilon", 1e-6)),
+            interleaved_rope=pos.get("interleaved_rope", False),
+            num_experts=p.get("num_experts", 1),
+            moe_top_k=p.get("moe_top_k", 2),
+            attn_impl=p.get("attn_impl", "auto"),
+            remat=p.get("remat", False),
+            dtype={"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}.get(
+                p.get("dtype", "bf16"), p.get("dtype", "bfloat16")),
+        )
+        if p.get("num_multi_query_heads", 0) or p.get("use_SwiGLU", False):
+            raise NotImplementedError("MQA and SwiGLU MLPs are not used by SCAIL configs")
+        kw.update(overrides)
+        return DiTConfig(**kw)
+
+    def check_supported(self) -> None:
+        """Raise for the JAX package's options this port does not run."""
+        if self.attn_impl in UNPORTED_ATTN:
+            raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported: "
+                                      f"{UNPORTED_ATTN[self.attn_impl]}")
+        if self.attn_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown attn_impl {self.attn_impl!r}, expected one of "
+                             f"{ATTN_IMPLS} (kernels, plain)")
+        if self.num_experts > 1:
+            raise NotImplementedError("MoE MLP (num_experts > 1) is not ported: "
+                                      "ROADMAP Queue 2, MoE dispatch")
+        if self.patch_size[0] != 1:
+            raise NotImplementedError("temporal patching > 1 is not used by SCAIL configs")
+
+
+class DiTBlock(nn.Module):
+    def __init__(self, cfg: DiTConfig, device=None):
+        super().__init__()
+        h, inner = cfg.hidden_size, cfg.inner_hidden_size
+        lin = lambda i, o: linear(i, o, device=device)  # noqa: E731
+        self.qkv = lin(h, 3 * h)
+        self.attn_out = lin(h, h)
+        self.cross_q = lin(h, h)
+        self.cross_kv = lin(h, 2 * h)
+        self.cross_out = lin(h, h)
+        self.mlp_in = lin(h, inner)
+        self.mlp_out = lin(inner, h)
+        if cfg.share_adaln:
+            self.adaln = parameter(6, h, device=device)
+        else:
+            self.adaln_mlp = lin(cfg.time_embed_dim, 6 * h)
+        if cfg.qk_ln:
+            norms = ["q_norm", "k_norm", "cross_q_norm", "cross_k_norm"]
+            if cfg.use_i2v_clip:
+                norms.append("clip_k_norm")
+            for n in norms:
+                setattr(self, n, container(scale=parameter(h, fill=1.0, device=device)))
+        if cfg.use_i2v_clip:
+            self.clip_kv = lin(h, 2 * h)
+
+
+class DiT(nn.Module):
+    """The DiT forward as an nn.Module (JAX `dit_forward`)."""
+
+    def __init__(self, cfg: DiTConfig, device=None):
+        super().__init__()
+        cfg.check_supported()
+        self.config = cfg
+        h, te = cfg.hidden_size, cfg.time_embed_dim
+        pt, ph, pw = cfg.patch_size
+        patch_in = cfg.in_channels * pt * ph * pw
+        patch_out = cfg.out_channels * pt * ph * pw
+        lin = lambda i, o: linear(i, o, device=device)  # noqa: E731
+        self.patch_embed = container(proj=lin(patch_in, h), proj_pose=lin(patch_in, h))
+        self.time_embed = container(fc1=lin(cfg.time_freq_dim, te), fc2=lin(te, te))
+        self.text_embedding = container(fc1=lin(cfg.text_dim, h), fc2=lin(h, h))
+        self.final_layer = container(linear=lin(h, patch_out))
+        if cfg.share_adaln:
+            self.adaln_projection = container(fc=lin(te, 6 * h))
+            self.final_layer.adaln = parameter(2, h, device=device)
+        else:
+            self.final_layer.adaln_mlp = lin(te, 2 * h)
+        if cfg.use_i2v_clip:
+            ln = lambda d: container(scale=parameter(d, fill=1.0, device=device),  # noqa: E731
+                                     bias=parameter(d, fill=0.0, device=device))
+            self.clip_proj = container(ln_in=ln(cfg.clip_dim),
+                                       fc1=lin(cfg.clip_dim, cfg.clip_dim),
+                                       fc2=lin(cfg.clip_dim, h), ln_out=ln(h))
+        if cfg.cfg_embed_dim:
+            self.cfg_embed = container(fc1=lin(cfg.time_freq_dim, cfg.cfg_embed_dim),
+                                       fc2=lin(cfg.cfg_embed_dim, cfg.cfg_embed_dim))
+        self.layers = nn.ModuleList(DiTBlock(cfg, device) for _ in range(cfg.num_layers))
+        self._rope_cache = {}
+
+    def init_weights_(self, generator: torch.Generator) -> None:
+        """Random smoke-mode init with the JAX package's scales: N(0, 0.02)
+        linears, xavier-like patch/final projections, AdaLN tables
+        N(0, 1/h); zero-init AdaLN MLPs and cfg-embedding output."""
+        h = self.config.hidden_size
+
+        def std(name, p):
+            if name.endswith("adaln"):
+                return h ** -0.5
+            if name.startswith(("patch_embed.", "final_layer.linear")):
+                return (2.0 / (p.shape[0] + p.shape[1])) ** 0.5
+            if "adaln_mlp" in name or name.startswith("cfg_embed.fc2"):
+                return 0.0
+            return 0.02
+
+        random_init_(self, generator, std)
+
+    def _rope(self, T, Hp, Wp, h_shift, w_shift, device):
+        cfg = self.config
+        key = (T, Hp, Wp, h_shift, w_shift, str(device))
+        if key not in self._rope_cache:
+            self._rope_cache[key] = build_scail_rope(
+                cfg.head_dim, T, Hp, Wp, h_shift=h_shift, w_shift=w_shift,
+                pose_w_offset=cfg.pose_w_offset, theta=cfg.rope_theta,
+                interleaved=cfg.interleaved_rope, device=device)
+        return self._rope_cache[key]
+
+    def forward(self, x, timesteps, context, *, ref_concat, concat_smpl_render,
+                image_clip_features=None, history_mask=None, cfg_scale=None,
+                h_shift: int = 0, w_shift: int = 0):
+        """x (b, T, 16, H, W) noisy latent, timesteps (b,) c_noise, context
+        (b, S_txt, text_dim); returns the velocity (b, T, 16, H, W)."""
+        cfg = self.config
+        if cfg.remat and torch.is_grad_enabled():
+            raise NotImplementedError("remat (training with activation checkpointing) is "
+                                      "not ported: ROADMAP Queue 1, training")
+        cdtype = cfg.compute_dtype
+        eps = cfg.layernorm_epsilon
+        b, T, _, H, W = x.shape
+        _, ph, pw = cfg.patch_size
+        Hp, Wp = H // ph, W // pw
+        n_heads = cfg.num_heads
+        dev = x.device
+        x = x.to(cdtype)
+
+        if history_mask is None:
+            history_mask = torch.zeros((b, T, 4, H, W), dtype=cdtype, device=dev)
+        x = torch.cat([x, history_mask.to(cdtype)], dim=2)
+        ref = torch.cat([ref_concat.to(cdtype),
+                         torch.ones((b, 1, 4, H, W), dtype=cdtype, device=dev)], dim=2)
+        pose = torch.cat([concat_smpl_render.to(cdtype),
+                          torch.ones((b, T, 4, H // 2, W // 2), dtype=cdtype, device=dev)],
+                         dim=2)
+
+        te = self.text_embedding
+        context = dense(te.fc2, gelu_tanh(dense(te.fc1, context.to(cdtype))))
+        clip_tokens = None
+        if cfg.use_i2v_clip:
+            if image_clip_features is None:
+                raise ValueError("use_i2v_clip needs image_clip_features")
+            cp = self.clip_proj
+            y = layer_norm(image_clip_features.to(cdtype), cp.ln_in.scale, cp.ln_in.bias,
+                           eps=1e-5)
+            y = dense(cp.fc2, gelu_exact(dense(cp.fc1, y)))
+            clip_tokens = layer_norm(y, cp.ln_out.scale, cp.ln_out.bias, eps=1e-5)
+
+        t_emb = timestep_embedding(timesteps, cfg.time_freq_dim, dtype=cdtype)
+        emb = dense(self.time_embed.fc2, silu(dense(self.time_embed.fc1, t_emb)))
+        if cfg.cfg_embed_dim and cfg_scale is not None:
+            cs = torch.as_tensor(cfg_scale, dtype=torch.float32, device=dev).reshape(-1)
+            cfg_emb = timestep_embedding(cs.expand(b), cfg.time_freq_dim, dtype=cdtype)
+            emb = emb + dense(self.cfg_embed.fc2, silu(dense(self.cfg_embed.fc1, cfg_emb)))
+        if cfg.share_adaln:
+            adaln_emb = dense(self.adaln_projection.fc, silu(emb)).reshape(b, 6, -1)
+
+        hidden = torch.cat([
+            _patchify_tokens(torch.cat([ref, x], dim=1), self.patch_embed.proj, cfg.patch_size),
+            _patchify_tokens(pose, self.patch_embed.proj_pose, cfg.patch_size),
+        ], dim=1)
+        ref_len = Hp * Wp
+        seq_len = T * Hp * Wp
+        pose_len = T * (Hp // 2) * (Wp // 2)
+        rope = self._rope(T, Hp, Wp, h_shift, w_shift, dev)
+        impl = cfg.attn_impl
+
+        def heads(t):
+            return t.unflatten(-1, (n_heads, -1))
+
+        for blk in self.layers:
+            if cfg.share_adaln:
+                mod = adaln_emb + blk.adaln[None].to(adaln_emb.dtype)
+            else:
+                mod = dense(blk.adaln_mlp, silu(emb)).reshape(b, 6, -1)
+            s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.unsqueeze(2).unbind(1)
+
+            # self attention: q roped inside the kernel, k in plain torch
+            ai = modulate(layer_norm(hidden, eps=eps), s_msa, sc_msa)
+            q, k, v = dense(blk.qkv, ai).chunk(3, dim=-1)
+            if cfg.qk_ln:
+                q = rms_norm(q, blk.q_norm.scale if cfg.qk_ln_affine else None, eps=eps)
+                k = rms_norm(k, blk.k_norm.scale if cfg.qk_ln_affine else None, eps=eps)
+            attn = attention(heads(q), heads(k), heads(v), impl=impl,
+                             rope=(rope.cos, rope.sin), rope_interleaved=cfg.interleaved_rope)
+            hidden = hidden + g_msa * dense(blk.attn_out, attn.flatten(2))
+
+            # dual cross attention, no AdaLN modulation or gate
+            cq = dense(blk.cross_q, layer_norm(hidden, eps=eps))
+            ck, cv = dense(blk.cross_kv, context).chunk(2, dim=-1)
+            if cfg.qk_ln:
+                cq = rms_norm(cq, blk.cross_q_norm.scale if cfg.qk_ln_affine else None, eps=eps)
+                ck = rms_norm(ck, blk.cross_k_norm.scale if cfg.qk_ln_affine else None, eps=eps)
+            if cfg.use_i2v_clip:
+                pk, pv = dense(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
+                if cfg.qk_ln:
+                    pk = rms_norm(pk, blk.clip_k_norm.scale if cfg.qk_ln_affine else None,
+                                  eps=eps)
+                cross = dual_cross_attention(heads(cq), heads(ck), heads(cv), heads(pk),
+                                             heads(pv), impl=impl)
+            else:
+                cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
+            hidden = hidden + dense(blk.cross_out, cross.flatten(2))
+
+            # MLP
+            mi = modulate(layer_norm(hidden, eps=eps), s_mlp, sc_mlp)
+            hidden = hidden + g_mlp * dense(blk.mlp_out, gelu_tanh(dense(blk.mlp_in, mi)))
+
+        fl = self.final_layer
+        if cfg.share_adaln:
+            fmod = emb[:, None, :] + fl.adaln[None].to(emb.dtype)
+        else:
+            fmod = dense(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
+        # only the video tokens are unpatchified: project just those rows
+        out = layer_norm(hidden[:, ref_len:ref_len + seq_len], eps=eps)
+        out = dense(fl.linear, modulate(out, fmod[:, 0:1], fmod[:, 1:2]))
+        return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
+
+
+def _patchify_tokens(x, proj, patch_size):
+    """(b, T, C, H, W) -> (b, T*(H/ph)*(W/pw), hidden), (t h w) token order and
+    (c, kh, kw) feature order: the stride == kernel patch conv."""
+    _, ph, pw = patch_size
+    b, T, C, H, W = x.shape
+    x = x.reshape(b, T, C, H // ph, ph, W // pw, pw).permute(0, 1, 3, 5, 2, 4, 6)
+    return dense(proj, x.reshape(b, T * (H // ph) * (W // pw), C * ph * pw))
+
+
+def _unpatchify(x, T, Hp, Wp, patch_size, out_channels):
+    """tokens (b, T*Hp*Wp, pt*ph*pw*c) -> (b, T, c, H, W)."""
+    pt, ph, pw = patch_size
+    b = x.shape[0]
+    x = x.reshape(b, T, Hp, Wp, pt, ph, pw, out_channels).permute(0, 1, 4, 7, 2, 5, 3, 6)
+    return x.reshape(b, T * pt, out_channels, Hp * ph, Wp * pw)
+
+
+@register(alias="dit_video_crossattn_sc_xc.DiffusionTransformer")
+class DiffusionTransformer:
+    """Config-driven wrapper so `instantiate_from_config` on the reference
+    YAML yields the config; `build(device)` makes the nn.Module."""
+
+    def __init__(self, **network_params):
+        targs = dict(network_params.get("transformer_args", {}) or {})
+        for k in ("transformer_args", "num_frames", "time_compressed_rate", "latent_width",
+                  "latent_height", "use_RMSNorm", "parallel_output"):
+            network_params.pop(k, None)
+        self.config = DiTConfig.from_network_config(
+            network_params, remat=bool(targs.get("checkpoint_activations", False)))
+
+    def build(self, device=None) -> DiT:
+        return DiT(self.config, device=device)

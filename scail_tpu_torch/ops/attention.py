@@ -1,0 +1,253 @@
+"""Attention ops: hand-written CUDA kernels with their plain PyTorch versions
+(counterpart of scail_tpu/ops/attention.py).
+
+Layout at the public functions is (batch, seq, heads, head_dim), as in the
+JAX package.  Two kernel wrappers:
+
+  * `flash_attention` -- flash self-attention (csrc/flash_attention.cu), with
+    the rotary optionally applied to q inside the kernel (k arrives roped);
+  * `dual_cross_attention_fused` -- the DiT's text + CLIP cross-attention,
+    two softmaxes summed (csrc/dual_cross_attention.cu).
+
+Each wrapper runs its plain version when given CPU tensors and launches its
+kernel (or raises) for CUDA tensors; there is no fallback from a CUDA tensor
+to the plain version.  Each counts its launches in `LAUNCHES`.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import math
+
+import torch
+
+from scail_tpu_torch.ops import cuda_build
+from scail_tpu_torch.ops.rotary import apply_rotary, rotate_half
+
+_LOG2E = math.log2(math.e)
+_LN2 = math.log(2.0)
+
+# kernel launches by wrapper (plain ints; reset with reset_launch_counts)
+LAUNCHES = {"flash_attention": 0, "flash_attention_rope": 0, "dual_cross_attention": 0}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# --------------------------------------------------------------------------
+# Plain versions: the kernels' functions in PyTorch, chunked over q rows so
+# they can check the kernels at 48,832 tokens (full logits would not fit).
+# --------------------------------------------------------------------------
+def _prescale_rope_q(q, scale, rope, interleaved):
+    """scale*log2e folded into q (rounded to q.dtype), then the rotary in f32
+    (rounded to q.dtype again), as the kernel does."""
+    qs = (q.float() * (scale * _LOG2E)).to(q.dtype)
+    if rope is None:
+        return qs
+    cos, sin = rope
+    xf = qs.float()
+    return (xf * cos.float()[:, None, :]
+            + rotate_half(xf, interleaved) * sin.float()[:, None, :]).to(q.dtype)
+
+
+def _softmax_stream(qb, k, v):
+    """One exp2-domain softmax of f32 q rows over a whole KV; P is rounded to
+    v.dtype before P V, as in the kernels.  Returns (o (b,q,n,d), m, l)."""
+    s = torch.einsum("bqnd,bknd->bnqk", qb, k.float())
+    m = s.amax(-1, keepdim=True)
+    p = torch.exp2(s - m)
+    l = p.sum(-1, keepdim=True)
+    o = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), v.float())
+    return o / l.permute(0, 2, 1, 3), m[..., 0], l[..., 0]
+
+
+def flash_attention_plain(q, k, v, *, scale=None, rope=None, rope_interleaved=True,
+                          block_q: int = 256):
+    """Plain version of `flash_attention`: returns (out (b,sq,n,d) in q.dtype,
+    lse (b,n,sq) f32, natural log).  k must already carry its rotary."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qs = _prescale_rope_q(q, scale, rope, rope_interleaved)
+    outs, lses = [], []
+    for i in range(0, q.shape[1], block_q):
+        o, m, l = _softmax_stream(qs[:, i:i + block_q].float(), k, v)
+        outs.append(o.to(q.dtype))
+        lses.append(_LN2 * m + torch.log(l.clamp_min(1e-30)))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
+
+
+def dual_cross_attention_plain(q, k1, v1, k2, v2, *, scale=None, block_q: int = 1024):
+    """Plain version of `dual_cross_attention_fused`:
+    softmax(q k1^T) v1 + softmax(q k2^T) v2, in q.dtype."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qs = _prescale_rope_q(q, scale, None, True)
+    outs = []
+    for i in range(0, q.shape[1], block_q):
+        qb = qs[:, i:i + block_q].float()
+        outs.append((_softmax_stream(qb, k1, v1)[0]
+                     + _softmax_stream(qb, k2, v2)[0]).to(q.dtype))
+    return torch.cat(outs, dim=1)
+
+
+# How far a kernel's bf16 result may sit from its plain version computed in
+# f32.  The kernels round q (after the scale and the rotary), P before P V and
+# the output to bf16.  Limits are scaled to the reference, since the output of
+# random attention over n keys shrinks like 1/sqrt(n):
+#   * max-abs error of the output <= OUT_MAX_PER_STD * std(plain output);
+#   * relative L2 error of every (batch, head) slice <= OUT_REL_L2;
+#   * natural-log LSE within LSE_ATOL.
+# Sound kernels sit under half of each limit.  The plain version with one
+# 64-key KV tile dropped or counted twice, at 48,832 keys, sits 0.34 std and
+# 3.8% relative L2 away from the full one.
+OUT_MAX_PER_STD = 0.1
+OUT_REL_L2 = 1e-2
+LSE_ATOL = 1e-2
+
+
+def error_vs_plain(got, want, *, lse=False) -> dict:
+    """Error of a kernel result against its plain version, with `ok` set by the
+    limits above.  got/want: outputs (b, s, n, d), or LSEs (b, n, s) when lse."""
+    d = got.float() - want.float()
+    max_abs = d.abs().max().item()
+    res = {"max_abs_err": max_abs, "mean_abs_err": d.abs().mean().item()}
+    if lse:
+        res["ok"] = max_abs <= LSE_ATOL
+        return res
+    w = want.float()
+    per_std = max_abs / w.std().item()
+    rel_l2 = (d.square().sum((1, 3)).sqrt() / w.square().sum((1, 3)).sqrt()).max().item()
+    res.update(err_per_std=per_std, rel_l2=rel_l2,
+               ok=per_std <= OUT_MAX_PER_STD and rel_l2 <= OUT_REL_L2)
+    return res
+
+
+# --------------------------------------------------------------------------
+# Kernel wrappers
+# --------------------------------------------------------------------------
+def _check_operand(name, t, device):
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype != torch.bfloat16:
+        raise TypeError(f"{name}: the kernel takes bfloat16, got {t.dtype}")
+    if t.dim() != 4 or t.shape[-1] != 128:
+        raise ValueError(f"{name}: the kernel takes (b, s, n, 128), got {tuple(t.shape)}")
+    if t.stride(-1) != 1 or any(s % 8 for s in t.stride()[:3]) or t.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs a contiguous head dim and 16-byte "
+                         f"aligned rows, got strides {t.stride()}")
+
+
+def _strides(t):
+    return [ctypes.c_longlong(s) for s in t.stride()[:3]]
+
+
+def _stream(device):
+    return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
+
+
+def flash_attention(q, k, v, *, scale=None, rope=None, rope_interleaved=True):
+    """Flash self-attention (b, sq, n, d) x (b, skv, n, d) -> (out, lse).
+
+    rope=(cos, sin) with (sq, d) tables rotates q inside the kernel (the
+    caller passes k already rotated).  CPU tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_plain(q, k, v, scale=scale, rope=rope,
+                                     rope_interleaved=rope_interleaved)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"flash_attention: no kernel for device {q.device}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, q.device)
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, n, d) or v.shape != k.shape:
+        raise ValueError(f"shape mismatch q {tuple(q.shape)} k {tuple(k.shape)} "
+                         f"v {tuple(v.shape)}")
+    if b * n > 65535 or skv == 0:
+        raise ValueError(f"unsupported batch*heads {b * n} / kv length {skv}")
+    mode = 0
+    cos = sin = None
+    if rope is not None:
+        cos, sin = (t.to(device=q.device, dtype=torch.float32).contiguous() for t in rope)
+        if cos.shape != (sq, d) or sin.shape != (sq, d):
+            raise ValueError(f"rope tables {tuple(cos.shape)} do not fit q {tuple(q.shape)}")
+        mode = 1 if rope_interleaved else 2
+    out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    lib = cuda_build.lib()
+    rc = lib.scail_flash_attention_fwd(
+        q.data_ptr(), k.data_ptr(), v.data_ptr(),
+        cos.data_ptr() if cos is not None else None,
+        sin.data_ptr() if sin is not None else None,
+        out.data_ptr(), lse.data_ptr(), b, n, sq, skv,
+        *_strides(q), *_strides(k), *_strides(v), *_strides(out),
+        ctypes.c_float(scale * _LOG2E), mode, _stream(q.device))
+    cuda_build.check(rc, "flash_attention")
+    LAUNCHES["flash_attention_rope" if mode else "flash_attention"] += 1
+    return out, lse
+
+
+def dual_cross_attention_fused(q, k1, v1, k2, v2, *, scale=None):
+    """attention(q, k1, v1) + attention(q, k2, v2) in one kernel.  CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        return dual_cross_attention_plain(q, k1, v1, k2, v2, scale=scale)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"dual_cross_attention: no kernel for device {q.device}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    for name, t in (("q", q), ("k1", k1), ("v1", v1), ("k2", k2), ("v2", v2)):
+        _check_operand(name, t, q.device)
+    b, sq, n, d = q.shape
+    s1, s2 = k1.shape[1], k2.shape[1]
+    if (k1.shape != (b, s1, n, d) or v1.shape != k1.shape or k2.shape != (b, s2, n, d)
+            or v2.shape != k2.shape or s1 == 0 or s2 == 0 or b * n > 65535):
+        raise ValueError("dual_cross_attention: unsupported shapes "
+                         f"{[tuple(t.shape) for t in (q, k1, v1, k2, v2)]}")
+    out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
+    lib = cuda_build.lib()
+    rc = lib.scail_dual_cross_attention_fwd(
+        q.data_ptr(), k1.data_ptr(), v1.data_ptr(), k2.data_ptr(), v2.data_ptr(),
+        out.data_ptr(), b, n, sq, s1, s2,
+        *_strides(q), *_strides(k1), *_strides(v1), *_strides(k2), *_strides(v2),
+        *_strides(out), ctypes.c_float(scale * _LOG2E), _stream(q.device))
+    cuda_build.check(rc, "dual_cross_attention")
+    LAUNCHES["dual_cross_attention"] += 1
+    return out
+
+
+# --------------------------------------------------------------------------
+# Public ops
+# --------------------------------------------------------------------------
+IMPLS = ("auto", "xla")  # kernel wrapper, plain version
+
+
+def _check_impl(impl):
+    if impl not in IMPLS:
+        raise ValueError(f"unknown attention impl {impl!r}, expected one of {IMPLS}")
+    return impl == "auto"
+
+
+def attention(q, k, v, *, scale: float = None, impl: str = "auto", rope=None,
+              rope_interleaved: bool = True):
+    """Full bidirectional attention, q (b, sq, n, d), k/v (b, skv, n, d).
+
+    rope: optional (cos, sin) (s, d) tables applied to q and k; k is rotated
+    here in plain torch and q inside the kernel (or its plain version).
+    impl: 'auto' takes the kernel wrapper (plain version on CPU tensors);
+    'xla' takes the plain version on any device."""
+    use_kernel = _check_impl(impl)
+    if rope is not None:
+        if q.shape[1] != k.shape[1]:
+            raise ValueError("rope needs q and k of the same length")
+        cos, sin = rope
+        k = apply_rotary(k, cos[:, None, :], sin[:, None, :], rope_interleaved)
+    fn = flash_attention if use_kernel else flash_attention_plain
+    out, _ = fn(q, k, v, scale=scale, rope=rope, rope_interleaved=rope_interleaved)
+    return out
+
+
+def dual_cross_attention(q, k1, v1, k2, v2, *, scale: float = None, impl: str = "auto"):
+    """attention(q, k1, v1) + attention(q, k2, v2): the DiT's summed text and
+    CLIP cross-attention."""
+    fn = dual_cross_attention_fused if _check_impl(impl) else dual_cross_attention_plain
+    return fn(q, k1, v1, k2, v2, scale=scale)
