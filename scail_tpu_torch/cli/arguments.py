@@ -1,6 +1,6 @@
 """CLI argument handling (counterpart of scail_tpu/cli/arguments.py).
 
-`--base a.yaml b.yaml` YAMLs are merged (shared scail_tpu/utils/config.py);
+`--base a.yaml b.yaml` YAMLs are merged (utils/config.py);
 their `args:` block fills the runtime namespace and `model:` is the model
 graph.  `--device` (default cuda) takes the place of the JAX `--platform`.
 """
@@ -10,7 +10,7 @@ from __future__ import annotations
 import argparse
 from types import SimpleNamespace
 
-from scail_tpu.utils.config import load_configs, split_reference_config
+from scail_tpu_torch.utils.config import load_configs, split_reference_config
 
 # 'auto' runs the CUDA kernels, 'xla' the plain versions; the port's DiT
 # raises for the JAX CLI's values that are not ported yet

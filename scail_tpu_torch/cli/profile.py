@@ -1,4 +1,5 @@
-"""Where the time of one request goes, on one NVIDIA GPU.
+"""Where the time of one request, and of one training step, goes on one
+NVIDIA GPU.
 
 Builds the engine from the 1.3B YAMLs with random weights (as the sampling
 CLI does without a checkpoint) and profiles, each after one warm-up call:
@@ -7,7 +8,11 @@ CLI does without a checkpoint) and profiles, each after one warm-up call:
                   tokens): the denoise step of the sampling loop;
   * vae_encode -- the streamed encode of 81 frames at 512x896;
   * pose_encode -- the streamed encode of the 2x2-downsampled pose video;
-  * vae_decode -- the streamed decode of 21 latent frames to 81 frames.
+  * vae_decode -- the streamed decode of 21 latent frames to 81 frames;
+  * train_step -- one Trainer step of the train CLI at batch 1, 512x896, 81
+                  frames: the VAE encodes, CLIP, the remat DiT forward and
+                  backward (f32 parameters, bf16 compute) and the clipped
+                  EMA-Adam update.
 
 Per phase: wall ms, device ms (the sum of kernel and memcpy/memset times that
 torch.profiler reads from CUPTI), device busy share (device ms / wall ms, one
@@ -28,9 +33,10 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-PHASES = ("dit", "vae_encode", "pose_encode", "vae_decode")
+PHASES = ("dit", "vae_encode", "pose_encode", "vae_decode", "train_step")
 # kernel-name substrings by group, first match wins
 GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
+          ("flash_attention_bwd", ("flash_bwd_",)),
           ("dual_cross_attention", ("dual_cross_kernel",)),
           ("conv", ("fprop", "dgrad", "wgrad", "conv", "winograd")),
           ("gemm", ("gemm", "nvjet", "cutlass")),
@@ -121,10 +127,29 @@ def main(argv=None):
         "vae_decode": lambda: engine.decode_first_stage(z),
     }
     card = torch.cuda.get_device_name(0)
-    for name in PHASES:
+    for name in PHASES[:-1]:
         with torch.inference_mode():
             rec = profile_phase(name, calls[name], a.out)
         print(json.dumps(dict(rec, device=card)), flush=True)
+    del calls, x, ctx, ref, pose, clip, z
+    rec = profile_phase("train_step", _train_step_call(engine, gen), a.out)
+    print(json.dumps(dict(rec, device=card)), flush=True)
+
+
+def _train_step_call(engine, gen):
+    """One step of the train CLI's Trainer on a random 81-frame 512x896 batch
+    (the text states drawn at umt5-xxl width in place of the conditioner)."""
+    from scail_tpu_torch.training.engine import TrainConfig, Trainer
+
+    engine.init_params(gen, trainable=True)
+    trainer = Trainer(engine.dit, lambda g, b: engine.shared_step(g, b)[0],
+                      TrainConfig(train_iters=100, warmup_iters=1))
+    batch = {"mp4": torch.rand(1, 81, 3, 512, 896, generator=gen, device="cuda") * 2 - 1,
+             "pose": torch.rand(1, 81, 3, 512, 896, generator=gen, device="cuda") * 2 - 1,
+             "ref_frame": torch.rand(1, 1, 3, 512, 896, generator=gen, device="cuda") * 2 - 1,
+             "crossattn": torch.randn(1, 512, 4096, generator=gen, device="cuda").to(
+                 engine.network.config.compute_dtype)}
+    return lambda: trainer.train_step(batch)
 
 
 if __name__ == "__main__":

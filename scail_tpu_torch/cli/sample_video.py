@@ -20,7 +20,6 @@ import time
 import numpy as np
 import torch
 
-from scail_tpu.native import resize_bilinear_host
 from scail_tpu_torch.cli.arguments import get_args
 from scail_tpu_torch.data.video import (
     find_file_with_patterns,
@@ -33,6 +32,7 @@ from scail_tpu_torch.data.video import (
 )
 from scail_tpu_torch.diffusion.samplers import RFSampler
 from scail_tpu_torch.engine import VideoDiffusionEngine
+from scail_tpu_torch.ops.resize import resize_bilinear_host
 
 REF_IMAGE_PATTERNS = ["ref.jpg", "ref.png", "ref_image.jpg", "ref_image.png"]
 POSE_PATTERNS = ["rendered_aligned.mp4", "rendered.mp4", "rendered_aligned.gif",

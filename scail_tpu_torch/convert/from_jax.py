@@ -83,3 +83,14 @@ def clip_vision_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     """`init_clip_vision_params` pytree -> `ClipVisionTower.state_dict()`."""
     return _stacked(params, lambda p, a: _conv_leaf(p, a) if p.startswith("patch_embedding")
                     else _linear_leaf(p, a))
+
+
+def ema_adam_state_from_jax(state):
+    """A JAX `EmaAdamState` (count, exp_avg, exp_avg_sq, shadow: DiT-shaped
+    pytrees) -> the port's EmaAdamState keyed like `DiT.named_parameters()`."""
+    from scail_tpu_torch.training.ema_adam import EmaAdamState
+
+    return EmaAdamState(count=int(np.asarray(state.count)),
+                        exp_avg=dit_state_dict_from_jax(state.exp_avg),
+                        exp_avg_sq=dit_state_dict_from_jax(state.exp_avg_sq),
+                        shadow=dit_state_dict_from_jax(state.shadow))

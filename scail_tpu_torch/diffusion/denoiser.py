@@ -3,7 +3,7 @@ out = net(x * c_in, c_noise) * c_out + x * c_skip."""
 
 from __future__ import annotations
 
-from scail_tpu.utils.misc import append_dims
+from scail_tpu_torch.utils.misc import append_dims
 from scail_tpu_torch.utils.registry import instantiate_from_config, register
 
 

@@ -13,7 +13,7 @@ from typing import Dict, Optional
 import numpy as np
 import torch
 
-from scail_tpu.utils.misc import default
+from scail_tpu_torch.utils.misc import default
 from scail_tpu_torch.utils.registry import instantiate_from_config, register
 
 

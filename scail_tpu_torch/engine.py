@@ -1,10 +1,11 @@
 """VideoDiffusionEngine on PyTorch (counterpart of scail_tpu/engine.py).
 
-Holds the DiT, denoiser, sampler, conditioner, CLIP and VAE built from the
-YAML `model:` block through the port's registry, on one explicit
-torch.device, and exposes init_params / encode_first_stage /
-decode_first_stage / network_fn / sample.  Noise comes from an explicit
-torch.Generator.  Training (the loss, shared_step) is not ported.
+Holds the DiT, denoiser, sampler, conditioner, CLIP, VAE and training loss
+built from the YAML `model:` block through the port's registry, on one
+explicit torch.device, and exposes init_params / encode_first_stage /
+decode_first_stage / network_fn / sample and, for training, loss /
+add_noise_to_first_frame / shared_step.  Noise comes from an explicit
+torch.Generator.  The encoders are frozen: only the DiT is trained.
 """
 
 from __future__ import annotations
@@ -14,8 +15,16 @@ from typing import Dict, Optional, Tuple
 
 import torch
 
-from scail_tpu.utils.misc import default
+from scail_tpu_torch.ops.resize import resize_bilinear
+from scail_tpu_torch.utils.misc import append_dims, default
 from scail_tpu_torch.utils.registry import ensure_imports, instantiate_from_config
+
+
+def _half_res(video):
+    """0.5x bilinear downsample of a (b, T, C, H, W) clip (the smpl_downsample
+    representation of the pose render)."""
+    H, W = video.shape[-2:]
+    return resize_bilinear(video, H // 2, W // 2)
 
 
 def resolve_device(device) -> torch.device:
@@ -36,6 +45,9 @@ class VideoDiffusionEngine:
         self.latent_input = mc.get("latent_input", False)
         self.use_pose = mc.get("use_pose", False)
         self.use_i2v_clip = mc.get("use_i2v_clip", False)
+        self.i2v_encode_video = mc.get("i2v_encode_video", False)
+        self.noised_image_input = mc.get("noised_image_input", False)
+        self.pose_dropout = mc.get("pose_dropout", 0.0)
 
         def _flag(name, dflt=False):
             if args is None:
@@ -63,14 +75,20 @@ class VideoDiffusionEngine:
         self.conditioner = build("conditioner_config")
         self.i2v_clip = build("i2v_clip_config", self.use_i2v_clip)
         self.first_stage_model = build("first_stage_config")
+        self.loss_fn = build("loss_fn_config")
 
-    def init_params(self, generator: torch.Generator):
+    def init_params(self, generator: torch.Generator, trainable: bool = False):
         """Random-init every sub-model that has no weights (smoke mode).
-        The text encoder keeps its width but is cut to 2 layers, as in the
-        JAX engine: random weights only need shape-correct embeddings."""
+        The DiT is cast to its compute dtype for serving; `trainable` keeps
+        its parameters in f32 with gradients on, as the JAX trainer keeps its
+        params.  The text encoder keeps its width but is cut to 2 layers, as
+        in the JAX engine: random weights only need shape-correct embeddings."""
         dit = self.network.build(self.device)
         dit.init_weights_(generator)
-        self.dit = dit.to(self.network.config.compute_dtype).eval()
+        if trainable:
+            self.dit = dit.requires_grad_(True).train()
+        else:
+            self.dit = dit.to(self.network.config.compute_dtype).eval()
         if self.first_stage_model is not None and self.first_stage_model.model is None:
             self.first_stage_model.init(generator, device=self.device)
         if self.i2v_clip is not None and self.i2v_clip.model is None:
@@ -104,7 +122,7 @@ class VideoDiffusionEngine:
 
         return fn
 
-    @torch.inference_mode()
+    @torch.no_grad()
     def encode_first_stage(self, x, force_encode: bool = False, streamed=None):
         """x (b, T, 3, H, W) in [-1, 1] -> scaled latent (b, t, 16, h, w)."""
         if not force_encode and self.latent_input:
@@ -133,3 +151,60 @@ class VideoDiffusionEngine:
 
         samples = self.sampler(denoise_fn, randn, cond, uc=uc)
         return samples.to(self.network.config.compute_dtype)
+
+    # ------------------------------------------------------------------
+    # training (the JAX engine's loss / shared_step)
+    # ------------------------------------------------------------------
+    def loss(self, generator: torch.Generator, latents, cond: Dict, history_mask=None, **kw):
+        """Per-sample training loss of the DiT on `latents` (b,)."""
+        return self.loss_fn(generator, self.network_fn(), self.denoiser, cond, latents,
+                            history_mask=history_mask,
+                            patch_size=self.network.config.patch_size, **kw)
+
+    def add_noise_to_first_frame(self, generator: torch.Generator, image):
+        """image + sigma * noise with sigma ~ exp(N(-2.5, 0.5)) per sample."""
+        dev = image.device
+        sigma = torch.exp(-2.5 + 0.5 * torch.randn((image.shape[0],), generator=generator,
+                                                   device=dev))
+        noise = torch.randn(image.shape, generator=generator, device=dev)
+        return image + (noise * append_dims(sigma, image.dim())).to(image.dtype)
+
+    def shared_step(self, generator: torch.Generator, batch: Dict):
+        """Raw-pixel training step: VAE-encode the clip, the reference frame
+        and the half-resolution pose, drop the pose conditioning with
+        probability pose_dropout, embed the text and CLIP features, then the
+        loss.  batch: {'mp4': (b,T,3,H,W), 'pose': (b,T,3,H,W),
+        'ref_frame': (b,1,3,H,W) in [-1, 1], and 'txt' [str]*b or a
+        precomputed 'crossattn'} on the engine's device.  Returns
+        (loss_mean, {'diffusion loss': loss_mean}).
+
+        The JAX step also VAE-encodes the noised first frame
+        (add_noise_to_first_frame) into cond['concat_images'] and drops it
+        with image_cond_dropout; no module reads that entry, and XLA removes
+        the dead encode from the jitted step, so it is not computed here.
+        Everything before the DiT runs without gradients (frozen encoders)."""
+        if not (self.use_pose and self.noised_image_input and self.i2v_encode_video):
+            raise NotImplementedError("shared_step is the pose-conditioned SCAIL step "
+                                      "(use_pose, noised_image_input, i2v_encode_video)")
+        x_pix, ref, pose_pix = batch["mp4"], batch["ref_frame"], batch["pose"]
+        b = x_pix.shape[0]
+        with torch.no_grad():
+            ref_concat = self.encode_first_stage(ref, force_encode=True, streamed=False)
+            latents = self.encode_first_stage(x_pix, force_encode=True)
+            pose_latent = self.encode_first_stage(_half_res(pose_pix), force_encode=True)
+            keep_pose = torch.rand((b,), generator=generator, device=self.device) \
+                >= self.pose_dropout
+            pose_latent = pose_latent * append_dims(keep_pose.to(pose_latent.dtype), 5)
+            if "crossattn" in batch:
+                cond = {"crossattn": batch["crossattn"]}
+            elif self.conditioner is not None:
+                cond = self.conditioner({"txt": batch["txt"]})
+            else:
+                cond = {}
+            cond["ref_concat"] = ref_concat
+            cond["concat_smpl_render"] = pose_latent
+            if self.use_i2v_clip and self.i2v_clip is not None:
+                cond["image_clip_features"] = self.i2v_clip.visual(ref.transpose(1, 2))
+        loss = self.loss(generator, latents, cond, history_mask=batch.get("history_mask"))
+        loss_mean = loss.mean()
+        return loss_mean, {"diffusion loss": loss_mean}

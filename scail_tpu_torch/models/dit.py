@@ -9,7 +9,11 @@ cross-attention kernel, a GELU(tanh) MLP, and the AdaLN final layer with
 unpatchify of the video tokens.
 
 Single-device dense path only: the JAX package's STA, Ulysses, ring,
-int8-attention, MoE and remat options raise NotImplementedError.
+int8-attention and MoE options raise NotImplementedError.  For training,
+`remat` checkpoints each layer (the JAX `default` remat policy); the policies
+that save or offload the flash outputs raise.  Parameters may be f32 (training)
+or the compute dtype (serving): every use casts them to the compute dtype,
+which costs nothing when they already have it.
 State-dict paths mirror the JAX parameter tree (convert/from_jax.py).
 """
 
@@ -20,6 +24,7 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
+from torch.utils.checkpoint import checkpoint
 
 from scail_tpu_torch.models.common import (container, dense, gelu_exact, gelu_tanh, linear,
                                            parameter, random_init_, silu, timestep_embedding)
@@ -39,6 +44,9 @@ UNPORTED_ATTN = {
     "ulysses": "ROADMAP Queue 1: torch.distributed sequence parallelism (Ulysses)",
     "ring": "ROADMAP Queue 1: torch.distributed sequence parallelism (ring attention)",
 }
+# remat policies of the JAX package other than 'default' (full per-layer
+# recompute), which keep the flash outputs across the recompute
+UNPORTED_REMAT = ("save_attn", "save_attn_frac", "offload_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -69,6 +77,7 @@ class DiTConfig:
     moe_top_k: int = 2
     dtype: str = "bfloat16"
     remat: bool = False
+    remat_policy: str = "default"
     attn_impl: str = "auto"
 
     @property
@@ -111,6 +120,7 @@ class DiTConfig:
             moe_top_k=p.get("moe_top_k", 2),
             attn_impl=p.get("attn_impl", "auto"),
             remat=p.get("remat", False),
+            remat_policy=p.get("remat_policy", "default"),
             dtype={"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}.get(
                 p.get("dtype", "bf16"), p.get("dtype", "bfloat16")),
         )
@@ -127,6 +137,12 @@ class DiTConfig:
         if self.attn_impl not in ATTN_IMPLS:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}, expected one of "
                              f"{ATTN_IMPLS} (kernels, plain)")
+        if self.remat and self.remat_policy in UNPORTED_REMAT:
+            raise NotImplementedError(f"remat_policy={self.remat_policy!r} is not ported: "
+                                      "ROADMAP Queue 1 item 12 (remat policies that save "
+                                      "the flash outputs)")
+        if self.remat and self.remat_policy != "default":
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.num_experts > 1:
             raise NotImplementedError("MoE MLP (num_experts > 1) is not ported: "
                                       "ROADMAP Queue 2, MoE dispatch")
@@ -226,15 +242,11 @@ class DiT(nn.Module):
         """x (b, T, 16, H, W) noisy latent, timesteps (b,) c_noise, context
         (b, S_txt, text_dim); returns the velocity (b, T, 16, H, W)."""
         cfg = self.config
-        if cfg.remat and torch.is_grad_enabled():
-            raise NotImplementedError("remat (training with activation checkpointing) is "
-                                      "not ported: ROADMAP Queue 1, training")
         cdtype = cfg.compute_dtype
         eps = cfg.layernorm_epsilon
         b, T, _, H, W = x.shape
         _, ph, pw = cfg.patch_size
         Hp, Wp = H // ph, W // pw
-        n_heads = cfg.num_heads
         dev = x.device
         x = x.to(cdtype)
 
@@ -265,6 +277,7 @@ class DiT(nn.Module):
             cs = torch.as_tensor(cfg_scale, dtype=torch.float32, device=dev).reshape(-1)
             cfg_emb = timestep_embedding(cs.expand(b), cfg.time_freq_dim, dtype=cdtype)
             emb = emb + dense(self.cfg_embed.fc2, silu(dense(self.cfg_embed.fc1, cfg_emb)))
+        adaln_emb = None
         if cfg.share_adaln:
             adaln_emb = dense(self.adaln_projection.fc, silu(emb)).reshape(b, 6, -1)
 
@@ -274,50 +287,14 @@ class DiT(nn.Module):
         ], dim=1)
         ref_len = Hp * Wp
         seq_len = T * Hp * Wp
-        pose_len = T * (Hp // 2) * (Wp // 2)
         rope = self._rope(T, Hp, Wp, h_shift, w_shift, dev)
-        impl = cfg.attn_impl
-
-        def heads(t):
-            return t.unflatten(-1, (n_heads, -1))
-
+        remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            if cfg.share_adaln:
-                mod = adaln_emb + blk.adaln[None].to(adaln_emb.dtype)
-            else:
-                mod = dense(blk.adaln_mlp, silu(emb)).reshape(b, 6, -1)
-            s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.unsqueeze(2).unbind(1)
-
-            # self attention: q roped inside the kernel, k in plain torch
-            ai = modulate(layer_norm(hidden, eps=eps), s_msa, sc_msa)
-            q, k, v = dense(blk.qkv, ai).chunk(3, dim=-1)
-            if cfg.qk_ln:
-                q = rms_norm(q, blk.q_norm.scale if cfg.qk_ln_affine else None, eps=eps)
-                k = rms_norm(k, blk.k_norm.scale if cfg.qk_ln_affine else None, eps=eps)
-            attn = attention(heads(q), heads(k), heads(v), impl=impl,
-                             rope=(rope.cos, rope.sin), rope_interleaved=cfg.interleaved_rope)
-            hidden = hidden + g_msa * dense(blk.attn_out, attn.flatten(2))
-
-            # dual cross attention, no AdaLN modulation or gate
-            cq = dense(blk.cross_q, layer_norm(hidden, eps=eps))
-            ck, cv = dense(blk.cross_kv, context).chunk(2, dim=-1)
-            if cfg.qk_ln:
-                cq = rms_norm(cq, blk.cross_q_norm.scale if cfg.qk_ln_affine else None, eps=eps)
-                ck = rms_norm(ck, blk.cross_k_norm.scale if cfg.qk_ln_affine else None, eps=eps)
-            if cfg.use_i2v_clip:
-                pk, pv = dense(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
-                if cfg.qk_ln:
-                    pk = rms_norm(pk, blk.clip_k_norm.scale if cfg.qk_ln_affine else None,
-                                  eps=eps)
-                cross = dual_cross_attention(heads(cq), heads(ck), heads(cv), heads(pk),
-                                             heads(pv), impl=impl)
-            else:
-                cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
-            hidden = hidden + dense(blk.cross_out, cross.flatten(2))
-
-            # MLP
-            mi = modulate(layer_norm(hidden, eps=eps), s_mlp, sc_mlp)
-            hidden = hidden + g_mlp * dense(blk.mlp_out, gelu_tanh(dense(blk.mlp_in, mi)))
+            args = (blk, hidden, emb, adaln_emb, context, clip_tokens, rope)
+            # remat: keep only each layer's input, recompute the layer in the
+            # backward (the JAX `default` policy: jax.checkpoint per layer)
+            hidden = (checkpoint(self._layer, *args, use_reentrant=False) if remat
+                      else self._layer(*args))
 
         fl = self.final_layer
         if cfg.share_adaln:
@@ -328,6 +305,53 @@ class DiT(nn.Module):
         out = layer_norm(hidden[:, ref_len:ref_len + seq_len], eps=eps)
         out = dense(fl.linear, modulate(out, fmod[:, 0:1], fmod[:, 1:2]))
         return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
+
+    def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, rope):
+        """One DiT block: AdaLN self-attention (q roped in the kernel), the
+        dual text + CLIP cross-attention, and the AdaLN GELU-tanh MLP."""
+        cfg = self.config
+        eps = cfg.layernorm_epsilon
+        impl = cfg.attn_impl
+
+        def heads(t):
+            return t.unflatten(-1, (cfg.num_heads, -1))
+
+        def qk_norm(t, norm):
+            return rms_norm(t, norm.scale if cfg.qk_ln_affine else None, eps=eps)
+
+        if cfg.share_adaln:
+            mod = adaln_emb + blk.adaln[None].to(adaln_emb.dtype)
+        else:
+            mod = dense(blk.adaln_mlp, silu(emb)).reshape(emb.shape[0], 6, -1)
+        s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.unsqueeze(2).unbind(1)
+
+        # self attention: q roped inside the kernel, k in plain torch
+        ai = modulate(layer_norm(hidden, eps=eps), s_msa, sc_msa)
+        q, k, v = dense(blk.qkv, ai).chunk(3, dim=-1)
+        if cfg.qk_ln:
+            q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
+        attn = attention(heads(q), heads(k), heads(v), impl=impl,
+                         rope=(rope.cos, rope.sin), rope_interleaved=cfg.interleaved_rope)
+        hidden = hidden + g_msa * dense(blk.attn_out, attn.flatten(2))
+
+        # dual cross attention, no AdaLN modulation or gate
+        cq = dense(blk.cross_q, layer_norm(hidden, eps=eps))
+        ck, cv = dense(blk.cross_kv, context).chunk(2, dim=-1)
+        if cfg.qk_ln:
+            cq, ck = qk_norm(cq, blk.cross_q_norm), qk_norm(ck, blk.cross_k_norm)
+        if cfg.use_i2v_clip:
+            pk, pv = dense(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
+            if cfg.qk_ln:
+                pk = qk_norm(pk, blk.clip_k_norm)
+            cross = dual_cross_attention(heads(cq), heads(ck), heads(cv), heads(pk), heads(pv),
+                                         impl=impl)
+        else:
+            cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
+        hidden = hidden + dense(blk.cross_out, cross.flatten(2))
+
+        # MLP
+        mi = modulate(layer_norm(hidden, eps=eps), s_mlp, sc_mlp)
+        return hidden + g_mlp * dense(blk.mlp_out, gelu_tanh(dense(blk.mlp_in, mi)))
 
 
 def _patchify_tokens(x, proj, patch_size):

@@ -2,16 +2,20 @@
 (counterpart of scail_tpu/ops/attention.py).
 
 Layout at the public functions is (batch, seq, heads, head_dim), as in the
-JAX package.  Two kernel wrappers:
+JAX package.  Three kernel wrappers:
 
   * `flash_attention` -- flash self-attention (csrc/flash_attention.cu), with
     the rotary optionally applied to q inside the kernel (k arrives roped);
+  * `flash_attention_bwd` -- its gradient, a dq pass and a dk/dv pass
+    (csrc/flash_attention_bwd.cu);
   * `dual_cross_attention_fused` -- the DiT's text + CLIP cross-attention,
     two softmaxes summed (csrc/dual_cross_attention.cu).
 
 Each wrapper runs its plain version when given CPU tensors and launches its
 kernel (or raises) for CUDA tensors; there is no fallback from a CUDA tensor
-to the plain version.  Each counts its launches in `LAUNCHES`.
+to the plain version.  Each counts its launches in `LAUNCHES`.  `attention`
+and `dual_cross_attention` are differentiable: their torch.autograd.Functions
+are the counterparts of the JAX custom VJPs.
 """
 
 from __future__ import annotations
@@ -28,7 +32,8 @@ _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
 # kernel launches by wrapper (plain ints; reset with reset_launch_counts)
-LAUNCHES = {"flash_attention": 0, "flash_attention_rope": 0, "dual_cross_attention": 0}
+LAUNCHES = {"flash_attention": 0, "flash_attention_rope": 0, "dual_cross_attention": 0,
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:
@@ -88,6 +93,77 @@ def dual_cross_attention_plain(q, k1, v1, k2, v2, *, scale=None, block_q: int = 
         outs.append((_softmax_stream(qb, k1, v1)[0]
                      + _softmax_stream(qb, k2, v2)[0]).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def _bwd_operands(q, out, lse, do, scale):
+    """What _flash_bwd computes in XLA before its kernels: q prescaled by
+    scale*log2e (rounded to q.dtype), the LSE in the log2 domain and
+    delta = rowsum(dO * O) in f32, both (b, n, sq)."""
+    q2 = (q.float() * (scale * _LOG2E)).to(q.dtype)
+    delta = (do.float() * out.float()).sum(-1).transpose(1, 2)
+    return q2, lse.float() * _LOG2E, delta
+
+
+def flash_attention_bwd_plain(q, k, v, out, lse, do, *, scale=None, block_q: int = 256,
+                              grads: str = "all"):
+    """Plain version of `flash_attention_bwd`: the gradient of flash attention
+    (q already roped, lse natural-log from the forward), in f32 at the rounding
+    points of the Pallas kernels (dS and P rounded to the input dtype before
+    their products).  dk/dv rows depend only on their own kv rows, dq rows only
+    on their own q rows, so both can be checked on a slice.  Returns
+    (dq, dk, dv) in the input dtypes; grads='dq' or 'dkv' computes only the
+    plain version of that kernel and returns None for the others."""
+    if grads not in ("all", "dq", "dkv"):
+        raise ValueError(f"grads must be 'all', 'dq' or 'dkv', got {grads!r}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    q2, lse2, delta = _bwd_operands(q, out, lse, do, scale)
+    kf, vf = k.float(), v.float()
+    want_dq, want_dkv = grads in ("all", "dq"), grads in ("all", "dkv")
+    dk = torch.zeros(k.shape, dtype=torch.float32, device=k.device) if want_dkv else None
+    dv = torch.zeros(v.shape, dtype=torch.float32, device=v.device) if want_dkv else None
+    dqs = []
+    for i in range(0, q.shape[1], block_q):
+        sl = slice(i, i + block_q)
+        qb, dob = q2[:, sl].float(), do[:, sl].float()
+        s = torch.einsum("bqnd,bknd->bnqk", qb, kf)
+        p = torch.exp2((s - lse2[:, :, sl, None]).clamp_max(0.0))
+        dp = torch.einsum("bqnd,bknd->bnqk", dob, vf)
+        ds = (p * (dp - delta[:, :, sl, None])).to(k.dtype).float()
+        if want_dq:
+            dqs.append((torch.einsum("bnqk,bknd->bqnd", ds, kf) * scale).to(q.dtype))
+        if want_dkv:
+            dv += torch.einsum("bnqk,bqnd->bknd", p.to(do.dtype).float(), dob)
+            dk += torch.einsum("bnqk,bqnd->bknd", ds, qb)
+    return (torch.cat(dqs, dim=1) if want_dq else None,
+            (dk * _LN2).to(k.dtype) if want_dkv else None,
+            dv.to(v.dtype) if want_dkv else None)
+
+
+def dual_cross_attention_bwd_plain(q, k1, v1, k2, v2, g, *, scale=None, block_q: int = 4096):
+    """Exact gradient of softmax(q k1^T s) v1 + softmax(q k2^T s) v2 in f32,
+    chunked over q rows (the JAX package's _dual_cross_vjp_bwd differentiates
+    the same composed reference in XLA; it has no kernel).  Returns
+    (dq, dk1, dv1, dk2, dv2) in the input dtypes."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    streams = [(k.float(), v.float()) for k, v in ((k1, v1), (k2, v2))]
+    dkv = [[torch.zeros(k.shape, dtype=torch.float32, device=k.device) for _ in range(2)]
+           for k, _ in streams]
+    dqs = []
+    for i in range(0, q.shape[1], block_q):
+        qb, gb = q[:, i:i + block_q].float(), g[:, i:i + block_q].float()
+        dq = torch.zeros_like(qb)
+        for (kf, vf), (dk, dv) in zip(streams, dkv):
+            p = torch.softmax(torch.einsum("bqnd,bknd->bnqk", qb, kf) * scale, dim=-1)
+            o = torch.einsum("bnqk,bknd->bqnd", p, vf)
+            dv += torch.einsum("bnqk,bqnd->bknd", p, gb)
+            dp = torch.einsum("bqnd,bknd->bnqk", gb, vf)
+            ds = p * (dp - (gb * o).sum(-1).transpose(1, 2)[..., None])
+            dq += torch.einsum("bnqk,bknd->bqnd", ds, kf) * scale
+            dk += torch.einsum("bnqk,bqnd->bknd", ds, qb) * scale
+        dqs.append(dq.to(q.dtype))
+    (dk1, dv1), (dk2, dv2) = dkv
+    return (torch.cat(dqs, dim=1), dk1.to(k1.dtype), dv1.to(v1.dtype), dk2.to(k2.dtype),
+            dv2.to(v2.dtype))
 
 
 # How far a kernel's bf16 result may sit from its plain version computed in
@@ -215,6 +291,125 @@ def dual_cross_attention_fused(q, k1, v1, k2, v2, *, scale=None):
     return out
 
 
+def flash_attention_bwd(q, k, v, out, lse, do, *, scale=None):
+    """Gradient of `flash_attention` (no rotary: q and k already roped), from
+    its output and natural-log LSE: (dq, dk, dv), two kernel launches.  CPU
+    tensors take the plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_bwd_plain(q, k, v, out, lse, do, scale=scale)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"flash_attention_bwd: no kernel for device {q.device}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    b, sq, n, d = q.shape
+    if (k.shape[0] != b or k.shape[2:] != q.shape[2:] or v.shape != k.shape
+            or out.shape != q.shape or do.shape != q.shape or lse.shape != (b, n, sq)):
+        raise ValueError("flash_attention_bwd: unsupported shapes "
+                         f"{[tuple(t.shape) for t in (q, k, v, out, lse, do)]}")
+    q2, lse2, delta = _bwd_operands(q, out, lse, do, scale)
+    ops = (q2, k, v, do, lse2.contiguous(), delta.contiguous())
+    return (flash_attention_bwd_dq(*ops, scale=scale), *flash_attention_bwd_dkv(*ops))
+
+
+def _check_bwd_operands(q2, k, v, do, lse2, delta):
+    for name, t in (("q", q2), ("k", k), ("v", v), ("do", do)):
+        _check_operand(name, t, q2.device)
+    b, sq, n, _ = q2.shape
+    if b * n > 65535 or k.shape[1] == 0:
+        raise ValueError(f"unsupported batch*heads {b * n} / kv length {k.shape[1]}")
+    for name, t in (("lse2", lse2), ("delta", delta)):
+        if t.shape != (b, n, sq) or t.dtype != torch.float32 or not t.is_contiguous():
+            raise ValueError(f"{name}: the kernels take contiguous f32 (b, n, sq)")
+
+
+def flash_attention_bwd_dq(q2, k, v, do, lse2, delta, *, scale):
+    """The dq kernel on _bwd_operands' inputs (q prescaled, log2 LSE, delta)."""
+    _check_bwd_operands(q2, k, v, do, lse2, delta)
+    b, sq, n, _ = q2.shape
+    dq = torch.empty(q2.shape, dtype=q2.dtype, device=q2.device)
+    rc = cuda_build.lib().scail_flash_attention_bwd_dq(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), dq.data_ptr(), b, n, sq, k.shape[1], *_strides(q2), *_strides(k),
+        *_strides(v), *_strides(do), *_strides(dq), ctypes.c_float(scale), _stream(q2.device))
+    cuda_build.check(rc, "flash_attention_bwd_dq")
+    LAUNCHES["flash_attention_bwd_dq"] += 1
+    return dq
+
+
+def flash_attention_bwd_dkv(q2, k, v, do, lse2, delta):
+    """The dk/dv kernel on _bwd_operands' inputs: (dk, dv)."""
+    _check_bwd_operands(q2, k, v, do, lse2, delta)
+    b, sq, n, _ = q2.shape
+    dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
+    dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
+    rc = cuda_build.lib().scail_flash_attention_bwd_dkv(
+        q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
+        delta.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n, sq, k.shape[1], *_strides(q2),
+        *_strides(k), *_strides(v), *_strides(do), *_strides(dk), *_strides(dv),
+        _stream(q2.device))
+    cuda_build.check(rc, "flash_attention_bwd_dkv")
+    LAUNCHES["flash_attention_bwd_dkv"] += 1
+    return dk, dv
+
+
+# --------------------------------------------------------------------------
+# Gradients (counterparts of the JAX custom VJPs)
+# --------------------------------------------------------------------------
+def rope_transpose(g, cos, sin, interleaved: bool = True):
+    """Pull a gradient back through `apply_rotary` (JAX _rope_t_bnsd).  The
+    rotary is J = C + R S with R the antisymmetric rotate_half, so
+    J^T = C - R S: multiply by sin first, then rotate (C - S R differs in the
+    halves layout, whose swap straddles the per-axis table blocks)."""
+    cos, sin = cos.to(g.dtype), sin.to(g.dtype)
+    return g * cos - rotate_half(g * sin, interleaved)
+
+
+class _FlashAttention(torch.autograd.Function):
+    """Flash attention with an optional rotary on q and k (JAX
+    _flash_attention_rope_bnsd / _flash_attention_bnsd): the forward ropes k
+    in torch and q inside the kernel; the backward ropes q in torch, runs the
+    dq and dk/dv kernels and pulls dq and dk back through the transposed
+    rotary.  The tables get no gradient."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, cos, sin, scale, interleaved):
+        rope = None
+        if cos is not None:
+            rope = (cos, sin)
+            k = apply_rotary(k, cos[:, None, :], sin[:, None, :], interleaved)
+        out, lse = flash_attention(q, k, v, scale=scale, rope=rope, rope_interleaved=interleaved)
+        ctx.save_for_backward(q, k, v, out, lse, cos, sin)
+        ctx.scale, ctx.interleaved = scale, interleaved
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k_roped, v, out, lse, cos, sin = ctx.saved_tensors
+        il = ctx.interleaved
+        if cos is not None:
+            q = apply_rotary(q, cos[:, None, :], sin[:, None, :], il)
+        dq, dk, dv = flash_attention_bwd(q, k_roped, v, out, lse, do.contiguous(),
+                                         scale=ctx.scale)
+        if cos is not None:
+            dq = rope_transpose(dq, cos[:, None, :], sin[:, None, :], il)
+            dk = rope_transpose(dk, cos[:, None, :], sin[:, None, :], il)
+        return dq, dk, dv, None, None, None, None
+
+
+class _DualCrossAttention(torch.autograd.Function):
+    """The dual cross-attention kernel forward with the exact plain backward
+    (JAX _dual_cross_tpu)."""
+
+    @staticmethod
+    def forward(ctx, q, k1, v1, k2, v2, scale):
+        ctx.save_for_backward(q, k1, v1, k2, v2)
+        ctx.scale = scale
+        return dual_cross_attention_fused(q, k1, v1, k2, v2, scale=scale)
+
+    @staticmethod
+    def backward(ctx, g):
+        return (*dual_cross_attention_bwd_plain(*ctx.saved_tensors, g, scale=ctx.scale), None)
+
+
 # --------------------------------------------------------------------------
 # Public ops
 # --------------------------------------------------------------------------
@@ -233,21 +428,28 @@ def attention(q, k, v, *, scale: float = None, impl: str = "auto", rope=None,
 
     rope: optional (cos, sin) (s, d) tables applied to q and k; k is rotated
     here in plain torch and q inside the kernel (or its plain version).
-    impl: 'auto' takes the kernel wrapper (plain version on CPU tensors);
-    'xla' takes the plain version on any device."""
+    impl: 'auto' takes the kernel wrappers, forward and backward (plain
+    versions on CPU tensors); 'xla' takes the plain forward on any device and
+    lets autograd differentiate it."""
     use_kernel = _check_impl(impl)
+    cos = sin = None
     if rope is not None:
         if q.shape[1] != k.shape[1]:
             raise ValueError("rope needs q and k of the same length")
         cos, sin = rope
+    if use_kernel:
+        scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+        return _FlashAttention.apply(q, k, v, cos, sin, scale, rope_interleaved)
+    if rope is not None:
         k = apply_rotary(k, cos[:, None, :], sin[:, None, :], rope_interleaved)
-    fn = flash_attention if use_kernel else flash_attention_plain
-    out, _ = fn(q, k, v, scale=scale, rope=rope, rope_interleaved=rope_interleaved)
-    return out
+    return flash_attention_plain(q, k, v, scale=scale, rope=rope,
+                                 rope_interleaved=rope_interleaved)[0]
 
 
 def dual_cross_attention(q, k1, v1, k2, v2, *, scale: float = None, impl: str = "auto"):
     """attention(q, k1, v1) + attention(q, k2, v2): the DiT's summed text and
     CLIP cross-attention."""
-    fn = dual_cross_attention_fused if _check_impl(impl) else dual_cross_attention_plain
-    return fn(q, k1, v1, k2, v2, scale=scale)
+    if _check_impl(impl):
+        scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+        return _DualCrossAttention.apply(q, k1, v1, k2, v2, scale)
+    return dual_cross_attention_plain(q, k1, v1, k2, v2, scale=scale)

@@ -2,7 +2,8 @@
 
 The kernels are compiled by nvcc for sm_90a into one shared library with a
 plain C interface, at first use, from the sources in this checkout only, into
-`build/scail_tpu_torch/` at the repository root.  The library name carries a
+`build/scail_tpu_torch/` at the repository root: one nvcc per source, all
+started together, then one link.  The library name carries a
 hash of the sources and flags, so an edited source is never served by a stale
 build.  The library is loaded with ctypes; a build failure raises.
 """
@@ -20,10 +21,10 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scail_tpu_torch"
-SOURCES = ("flash_attention.cu", "dual_cross_attention.cu")
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "dual_cross_attention.cu")
 HEADERS = ("mma_common.cuh",)
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+              "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 _LOCK = threading.Lock()
 _LIB = None
@@ -60,14 +61,31 @@ def build() -> dict:
         log = log_path.read_text() if log_path.is_file() else ""
         return {"path": str(lib_path), "seconds": 0.0, "cached": True, "log": log}
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
-    cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *(str(CSRC_DIR / s) for s in SOURCES)]
+    nvcc = _nvcc()
+    tag = f"{lib_path.stem}.{os.getpid()}"
+    objs = [BUILD_DIR / f"{tag}.{Path(s).stem}.o" for s in SOURCES]
     t0 = time.perf_counter()
+    procs = [(cmd, subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+                                    text=True))
+             for cmd in ([nvcc, *NVCC_FLAGS, "-c", "-o", str(o), str(CSRC_DIR / s)]
+                         for s, o in zip(SOURCES, objs))]
+    logs = []
+    for cmd, proc in procs:
+        out = proc.communicate()[0]
+        logs.append(out)
+        if proc.returncode != 0:
+            for _, other in procs:
+                other.kill()
+            raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{out}")
+    tmp = lib_path.with_suffix(f".tmp{os.getpid()}")
+    cmd = [nvcc, "-shared", "-o", str(tmp), *map(str, objs)]
     proc = subprocess.run(cmd, capture_output=True, text=True)
-    seconds = time.perf_counter() - t0
-    log = proc.stdout + proc.stderr
+    log = "".join(logs) + proc.stdout + proc.stderr
     if proc.returncode != 0:
-        raise RuntimeError(f"nvcc failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+        raise RuntimeError(f"nvcc link failed (rc {proc.returncode}):\n{' '.join(cmd)}\n{log}")
+    seconds = time.perf_counter() - t0
+    for o in objs:
+        o.unlink()
     os.replace(tmp, lib_path)
     log_path.write_text(log)
     return {"path": str(lib_path), "seconds": seconds, "cached": False, "log": log}
@@ -86,6 +104,11 @@ def lib() -> ctypes.CDLL:
             cdll.scail_dual_cross_attention_fwd.argtypes = (
                 [_P] * 6 + [_I] * 5 + [_L] * 18 + [_F, _P])
             cdll.scail_dual_cross_attention_fwd.restype = _I
+            cdll.scail_flash_attention_bwd_dq.argtypes = (
+                [_P] * 7 + [_I] * 4 + [_L] * 15 + [_F, _P])
+            cdll.scail_flash_attention_bwd_dq.restype = _I
+            cdll.scail_flash_attention_bwd_dkv.argtypes = [_P] * 8 + [_I] * 4 + [_L] * 18 + [_P]
+            cdll.scail_flash_attention_bwd_dkv.restype = _I
             BUILD_INFO.update(info)
             _LIB = cdll
         return _LIB

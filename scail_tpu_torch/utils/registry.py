@@ -64,5 +64,7 @@ def ensure_imports():
         "scail_tpu_torch.diffusion.guiders",
         "scail_tpu_torch.diffusion.samplers",
         "scail_tpu_torch.diffusion.conditioner",
+        "scail_tpu_torch.diffusion.loss",
+        "scail_tpu_torch.diffusion.sigma_sampling",
     ):
         importlib.import_module(m)

@@ -59,6 +59,54 @@ def test_dual_cross_attention_kernel_matches_plain(cuda):
     _assert_close(out, want)
 
 
+def _bwd_case(gen, strided_v=False):
+    """Ragged K5 inputs: q/dO (1, 150, 2, 128), k/v (1, 176, 2, 128), bf16, with
+    the forward's output and LSE from the kernel."""
+    q, k, do = _rnd(gen, 1, 150, 2, 128), _rnd(gen, 1, 176, 2, 128), _rnd(gen, 1, 150, 2, 128)
+    # v as the DiT passes it: a head-strided slice of a wider projection
+    v = _rnd(gen, 1, 176, 2, 3 * 128)[..., 128:256] if strided_v else _rnd(gen, 1, 176, 2, 128)
+    out, lse = A.flash_attention(q, k, v)
+    return q, k, v, out, lse, do
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("strided_v", [False, True])
+def test_flash_attention_bwd_kernels_match_plain(cuda, strided_v):
+    q, k, v, out, lse, do = _bwd_case(cuda, strided_v)
+    before = dict(A.LAUNCHES)
+    got = A.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv"):
+        assert A.LAUNCHES[name] == before[name] + 1
+    want = A.flash_attention_bwd_plain(q.float(), k.float(), v.float(), out.float(), lse,
+                                       do.float())
+    for g, w in zip(got, want):
+        _assert_close(g, w)
+    again = A.flash_attention_bwd(q, k, v, out, lse, do)  # two passes, no atomics
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleaved", [True, False])
+def test_attention_gradients_on_the_card_match_the_plain_path(cuda, interleaved):
+    """attention(rope=...) through its autograd Function on the card (K1
+    forward, K5 backward) against the same Function on CPU copies of the same
+    bf16 inputs, where it runs the plain versions: the same bf16 rounding of
+    the roped k and of the rope transposes, so only the kernels differ."""
+    q, k, v, w = (_rnd(cuda, 1, 150, 2, 128) for _ in range(4))
+    ang = torch.randn(150, 64, generator=cuda, device="cuda")
+    ang = ang.repeat_interleave(2, -1) if interleaved else torch.cat([ang, ang], -1)
+    grads = []
+    for device in ("cuda", "cpu"):
+        ts = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        rope = (ang.cos().to(device), ang.sin().to(device))
+        out = A.attention(*ts, rope=rope, rope_interleaved=interleaved)
+        (out.float() * w.to(device).float()).sum().backward()
+        grads.append([t.grad for t in ts])
+    for g, want in zip(*grads):
+        _assert_close(g, want.to(g.device))
+
+
 @pytest.mark.cuda
 def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
     q = _rnd(cuda, 1, 64, 2, 64)  # head dim 64

@@ -6,14 +6,18 @@
   1e-4, compared with scripts/fingerprints.py's own `compare`.
 * The port's CLI answers a request on examples_synth/001 with --device cpu at
   a tiny model built here, and writes its clip.
-* Guards: the port never imports jax; the reference YAML builds the port's
-  classes through the port's registry and the JAX classes through the JAX
-  registry in one process; a CUDA device without CUDA raises.
+* Guards: the port never imports jax or the JAX package (its modules, its
+  sources, and its train CLI run in a fresh interpreter); the reference
+  YAML builds the port's classes through the port's registry and the JAX
+  classes through the JAX registry in one process; a CUDA device without
+  CUDA raises.
 """
 
 import hashlib
+import inspect
 import json
 import os
+import re
 import subprocess
 import sys
 
@@ -33,6 +37,7 @@ from scail_tpu_torch.utils.registry import instantiate_from_config
 
 ROOT = os.path.join(os.path.dirname(__file__), "..")
 sys.path.insert(0, os.path.join(ROOT, "scripts"))
+sys.path.insert(0, os.path.dirname(__file__))
 
 SAMPLER = dict(
     hunyuan_schedule=True, shift_scale=5, num_steps=50, mode="normal",
@@ -224,9 +229,14 @@ def test_profiler_groups_kernels_and_needs_cuda(tmp_path):
             profile.main(["--out", str(tmp_path)])
 
 
+# modules of JAX or of the JAX package (but not of scail_tpu_torch)
+_FOREIGN = ("m == 'jax' or m.startswith('jax.') or m == 'scail_tpu' "
+            "or m.startswith('scail_tpu.')")
+
+
 def test_port_never_imports_jax():
     """Every module of scail_tpu_torch imports in a fresh interpreter without
-    pulling in jax (the shared scail_tpu host modules included)."""
+    pulling in jax or any module of the JAX package scail_tpu."""
     code = (
         "import importlib, pkgutil, sys\n"
         "import scail_tpu_torch\n"
@@ -234,13 +244,57 @@ def test_port_never_imports_jax():
         "'scail_tpu_torch.')]\n"
         "for n in names: importlib.import_module(n)\n"
         "assert 'scail_tpu_torch.cli.sample_video' in names, names\n"
-        "bad = [m for m in sys.modules if m == 'jax' or m.startswith('jax.')]\n"
+        "assert 'scail_tpu_torch.cli.train' in names, names\n"
+        f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
         "print(len(names))\n")
     out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
                          text=True, timeout=300)
     assert out.returncode == 0, out.stderr
     assert int(out.stdout.strip()) >= 20
+
+
+def test_port_sources_never_import_jax_or_the_jax_package():
+    """No source of scail_tpu_torch/, nor chip_smoke.py, imports jax or
+    scail_tpu, by statement or by importlib."""
+    pattern = re.compile(r"^\s*(?:from|import)\s+(?:jax|scail_tpu)(?:[.\s,]|$)"
+                         r"|import_module\(\s*[\"'](?:jax|scail_tpu)[\"'.]", re.M)
+    files = [os.path.join(ROOT, "chip_smoke.py")]
+    for d, _, names in os.walk(os.path.join(ROOT, "scail_tpu_torch")):
+        files += [os.path.join(d, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 30
+    bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
+           for m in [pattern.search(open(f).read())] if m}
+    assert not bad, bad
+    assert pattern.search("from scail_tpu.data import video") and \
+        pattern.search("import jax.numpy as jnp") and \
+        not pattern.search("from scail_tpu_torch.ops import attention")
+
+
+def test_train_cli_runs_without_jax_or_the_jax_package(tmp_path):
+    """The CPU train CLI at toy size, in a fresh interpreter: it trains an
+    iteration and leaves no module of jax or scail_tpu in sys.modules."""
+    from test_torch_training import _make_data_root, _toy_engine, _toy_train_yaml
+
+    root = _make_data_root(str(tmp_path / "data"))
+    code = (
+        "import sys\n"
+        "import torch\n"
+        + inspect.getsource(_toy_engine) +
+        "import scail_tpu_torch.engine as e\n"
+        "from scail_tpu_torch.cli import train\n"
+        "e.VideoDiffusionEngine = _toy_engine(e.VideoDiffusionEngine)\n"
+        f"t = train.main(['--base', {_toy_train_yaml(tmp_path)!r}, '--data-root', {root!r}, "
+        "'--train-iters', '1', '--image-size', '32', '32', '--num-frames', '5', "
+        "'--device', 'cpu'])\n"
+        "assert t.step == 1 and t.history[0]['ok'], t.history\n"
+        f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
+        "assert not bad, bad[:5]\n"
+        "print('trained', t.step)\n")
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT, capture_output=True,
+                         text=True, timeout=300)
+    assert out.returncode == 0, out.stderr[-3000:]
+    assert "trained 1" in out.stdout
 
 
 def test_reference_yaml_builds_each_package_through_its_own_registry():
