@@ -13,13 +13,20 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  kernels of training), within limits scaled to the plain
                  output (ops/attention.py, error_vs_plain); times of kernel,
                  plain version and the PyTorch library call that computes the
-                 same function, beside the card's bound for that work.
+                 same function, beside the card's bound for that work.  The
+                 sliding-tile kernels (K7, K8) run with the main path's tables
+                 for the video and the pose call of a layer; K2 and K5 also at
+                 the STA path's own shape, the 1,792 dense ref rows against
+                 48,832 kv rows (K2 runs nowhere else).
   4. DiT      -- the 1.3B DiT, all 30 layers, random bf16 weights, CFG batch 2 at
                  512x896/81 frames (48,832 tokens): 30 + 30 kernel launches, a
                  finite output, its time; kernel path vs plain path on a small input.
+  4b. DiT STA -- the same with attn_impl='sta' (tile (3, 8), window (3, 2)):
+                 exactly 60 K7 + 30 K2 + 30 K3 launches; kernel vs plain path.
   5. CLI      -- `scail_tpu_torch.cli.sample_video` with the 1.3B YAMLs, 2 steps,
                  two requests (examples_synth/001, and an 81-frame 512x896
                  synthetic example); both .mp4 clips decode to the right frames.
+  5b. CLI STA -- the 81-frame request again with --attn-impl sta.
   6. train    -- `scail_tpu_torch.cli.train` with the 1.3B YAML at 512x896, 81
                  frames, batch 1: 2 steps (finite losses, the DiT's parameters
                  move, 60 + 60 forward and 30 + 30 backward kernel launches
@@ -27,10 +34,14 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  against the plain path on a small input; then, at 4 layers
                  (two full-depth checkpoints would pass the machine's disk-write
                  limit), 2 steps saved and 1 step resumed from the checkpoint.
+  6b. train STA -- 2 steps at full width and depth from a YAML with
+                 `attn_impl: sta` (exact K7/K8/K2/K3/K5 launches), gradients
+                 kernel vs plain path.
 
 The line before the last is {"kernels": [...]}: per kernel its launches on the
-main paths (the sampling CLI of phase 5 and the train CLI of phase 6, each
-counted from 0), its largest error against the plain version, the kernel's,
+main paths (`launches_by_path`: the sampling CLI of phases 5 and 5b and the
+train CLI of phases 6 and 6b, each counted from 0, and their sum), its
+largest error against the plain version, the kernel's,
 the plain version's and the library call's milliseconds at the main-path shape,
 and the bound: the larger of bytes moved over 3.35 TB/s and FLOPs over
 989 TFLOP/s (H100 SXM bf16 dense).  The last line is {"ok": true, "device": ...}.
@@ -89,12 +100,20 @@ def nbytes(*ts):
     return sum(t.numel() * t.element_size() for t in ts)
 
 
-def compare(name, got, want, lse=False):
+# the largest max-abs error over std(plain output) of each kernel's checks,
+# by the `key` given to compare (reported in the kernels line)
+PER_STD = {}
+
+
+def compare(name, got, want, lse=False, key=None):
     """Error of a kernel result against its plain version (f32); fails past
-    the limits of error_vs_plain.  Returns the max-abs error."""
+    the limits of error_vs_plain.  Returns the max-abs error; an output's
+    error over std goes into PER_STD[key]."""
     from scail_tpu_torch.ops import attention as A
 
     e = A.error_vs_plain(got, want, lse=lse)
+    if key and not lse:
+        PER_STD[key] = max(PER_STD.get(key, 0.0), e["err_per_std"])
     if lse:
         limits = f"limit {A.LSE_ATOL}"
     else:
@@ -130,9 +149,12 @@ def phase_build():
 
     info = cuda_build.build()
     cuda_build.lib()
-    regs = [ln.strip() for ln in info["log"].splitlines() if "registers" in ln]
+    lines = info["log"].splitlines()
+    regs = [ln.strip() for ln in lines if "registers" in ln]
+    spills = [ln.strip() for ln in lines
+              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
     log(f"built {os.path.relpath(info['path'], ROOT)} in {info['seconds']:.2f} s "
-        f"(cached={info['cached']}); ptxas: {regs}")
+        f"(cached={info['cached']}); ptxas: {regs}; spills: {spills or 'none'}")
     return info["seconds"]
 
 
@@ -188,9 +210,10 @@ def phase_kernels():
             po, plse = A.flash_attention_plain(q[:, sl].float(), kk.float(), v.float(),
                                                rope=r, rope_interleaved=bool(interleaved))
             tag = f"flash rope={mode} (2,{S},12,128) rows [{sl.start},{sl.stop})"
-            err = max(err, compare(f"{tag} out", o[:, sl], po))
+            err = max(err, compare(f"{tag} out", o[:, sl], po,
+                                   key="flash_attention_rope" if interleaved else None))
             compare(f"{tag} lse", lse[:, :, sl], plse, lse=True)
-        if mode in ("interleaved", "none"):
+        if mode == "interleaved":
             ms = timed_ms(lambda: A.flash_attention(q, kk, v, rope=rope,
                                                     rope_interleaved=bool(interleaved)))
             plain_ms = timed_ms(lambda: A.flash_attention_plain(
@@ -206,7 +229,7 @@ def phase_kernels():
             log(f"flash rope={mode} main shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
                 f"TFLOP/s), plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
                 f"{b_ms:.3f} ms ({b_by})")
-            results["flash_attention_rope" if interleaved else "flash_attention"] = dict(
+            results["flash_attention_rope"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms)
     del kk
@@ -220,7 +243,8 @@ def phase_kernels():
     for sl in rows:
         po = A.dual_cross_attention_plain(q[:, sl].float(), *f32(k1, v1, k2, v2))
         err = max(err, compare(f"dual_cross (2,{S},12,128)x(512,257) rows "
-                               f"[{sl.start},{sl.stop}) out", o[:, sl], po))
+                               f"[{sl.start},{sl.stop}) out", o[:, sl], po,
+                               key="dual_cross_attention"))
     qs, k1s, v1s, k2s, v2s = rnd(2, 200, 2, 128), rnd(2, 37, 2, 128), rnd(2, 37, 2, 128), \
         rnd(2, 21, 2, 128), rnd(2, 21, 2, 128)
     compare("dual_cross small (2,200,2,128)x(37,21) out",
@@ -237,6 +261,11 @@ def phase_kernels():
     del q, k, v, o, k1, v1, k2, v2
     torch.cuda.empty_cache()
     results.update(_backward_kernels(gen, rnd, f32))
+    sta = _sta_kernels(gen, rnd, f32)
+    # K5 at the STA training path's shape, beside its dense-path numbers
+    for g in ("dq", "dkv"):
+        results[f"flash_attention_bwd_{g}"]["sta_ref_rows"] = sta.pop(f"flash_attention_bwd_{g}")
+    results.update(sta)
     return results
 
 
@@ -274,12 +303,15 @@ def _backward_kernels(gen, rnd, f32):
         pdq = A.flash_attention_bwd_plain(qr[:, sl].float(), kr.float(), v.float(),
                                           o[:, sl].float(), lse[:, :, sl], do[:, sl].float(),
                                           grads="dq")[0]
-        err["dq"] = max(err["dq"], compare(f"flash bwd dq {tag}", dq[:, sl], pdq))
+        err["dq"] = max(err["dq"], compare(f"flash bwd dq {tag}", dq[:, sl], pdq,
+                                           key="flash_attention_bwd_dq"))
         _, pdk, pdv = A.flash_attention_bwd_plain(qr.float(), kr[:, sl].float(),
                                                   v[:, sl].float(), o.float(), lse, do.float(),
                                                   grads="dkv")
-        err["dkv"] = max(err["dkv"], compare(f"flash bwd dk {tag}", dk[:, sl], pdk),
-                         compare(f"flash bwd dv {tag}", dv[:, sl], pdv))
+        err["dkv"] = max(err["dkv"], *(compare(f"flash bwd {n} {tag}", g, w,
+                                               key="flash_attention_bwd_dkv")
+                                       for n, g, w in (("dk", dk[:, sl], pdk),
+                                                       ("dv", dv[:, sl], pdv))))
         del pdq, pdk, pdv
     scale = 128 ** -0.5
     q2, lse2, delta = A._bwd_operands(qr, o, lse, do, scale)
@@ -311,7 +343,312 @@ def _backward_kernels(gen, rnd, f32):
     return results
 
 
-def _build_dit():
+# the sliding-tile geometry of the main path: 512x896, 81 frames (latent 21 x
+# 32 x 56 after the patch), ref 1,792 + video 37,632 + pose 9,408 tokens, the
+# JAX package's defaults: tile (3, 8), window (3, 2), windowed pose, pose-kv
+# window 3
+STA_GEOM = ((21, 32, 56), 1792, 9408, (3, 8), (3, 2), True, 3)
+
+
+def _sta_calls(plan):
+    """The two windowed calls of one layer: (name, q rows, q tile rows)."""
+    sv = plan.video_len
+    return (("video", slice(0, sv), plan.ts), ("pose", slice(sv, sv + plan.pose_len), plan.ts // 4))
+
+
+def _sta_pairs(plan, skv, ts_q):
+    """(q, kv) pairs one windowed call computes: every q row of a tile with
+    every real kv row of its table row's blocks (the short ref tail is not
+    padded, so its missing rows cost nothing)."""
+    real = [sum(min(plan.ts, skv - j * plan.ts) for j in row) for row in plan.table.tolist()]
+    return ts_q * sum(real)
+
+
+def _sdpa_masked_ms(q, k, v, mask, backward=None, err=None):
+    """The library call for a windowed call: SDPA on the memory-efficient
+    backend with the boolean block mask, forward, or forward + backward when
+    `backward` is dO.  Timed only; returns (ms, None), or (None, the error,
+    or `err` from an earlier call of the same kernel that failed)."""
+    if err:
+        return None, err
+    import torch
+    import torch.nn.functional as F
+    from torch.nn.attention import SDPBackend, sdpa_kernel
+
+    try:
+        with sdpa_kernel(SDPBackend.EFFICIENT_ATTENTION):
+            if backward is None:
+                return timed_ms(lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=mask)), None
+            qt, kt, vt = (t.detach().requires_grad_() for t in (q, k, v))
+            out = F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask)
+            return timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), backward,
+                                                        retain_graph=True)), None
+    except Exception as e:  # noqa: BLE001  (a yardstick that cannot run is recorded, not fatal)
+        return None, f"{type(e).__name__}: {str(e).splitlines()[0][:200]}"
+
+
+def _sta_small(rnd, f32):
+    """K7 and K8 against their plain versions at a ragged geometry: kv blocks
+    of 32 rows and pose q tiles of 8, so 64-row chunks straddle tiles and
+    blocks, and a ref tail block of 4 rows."""
+    import torch
+
+    from scail_tpu_torch.ops import sta as S
+
+    plan = S.sta_plan((2, 8, 16), 100, 64, (1, 2), (1, 2), True, 3)
+    tables = plan.tables("cuda")
+    s = 100 + plan.video_len + 64
+    q, k, v, do = (rnd(2, s, 2, 128) for _ in range(4))
+    for name, rows, ts_q in _sta_calls(plan):
+        qc, dc = q[:, rows], do[:, rows]
+        out, lse = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q,
+                                      with_lse=True)
+        got = S.sta_windowed_bwd(qc, k, v, out, lse, dc, tables, ts=plan.ts, ts_q=ts_q)
+        torch.cuda.synchronize()
+        po, plse = S.sta_windowed_plain(*f32(qc, k, v), tables.table, ts=plan.ts, ts_q=ts_q)
+        tag = f"sta {name} small (2,{rows.stop - rows.start},2,128)x{s} ts {plan.ts} ts_q {ts_q}"
+        compare(f"{tag} out", out, po)
+        compare(f"{tag} lse", lse, plse, lse=True)
+        # the backward's plain version on the kernels' own bf16 inputs (its
+        # rounding points), as at 48,832 tokens below
+        want = S.sta_windowed_bwd_plain(qc, k, v, out, lse, dc, tables, ts=plan.ts, ts_q=ts_q)
+        for g, w, n in zip(got, want, ("dq", "dk", "dv")):
+            compare(f"{tag} {n}", g, w)
+
+
+def _sta_kernels(gen, rnd, f32):
+    """K7 (with and without the LSE) and K8 (dq, dk/dv) against their plain
+    versions at 48,832 tokens with the main path's tables: K7 with and
+    without the LSE at the sampling shape (2, 48,832, 12, 128), K7 with the
+    LSE and K8 at the training shape (1, 48,832, 12, 128), each for the video
+    call and the pose call, every output row compared.  Times are of one
+    layer (video + pose call); the bound counts the pairs the tables visit,
+    FLOPs over 989 TFLOP/s.  Then the dense ref rows of the same layer, as the
+    STA path gives them to K2 (sampling) and K5 (training): the last 1,792 q
+    rows against all 48,832 kv rows.  Returns the entries of K7, K8 and K2,
+    and K5's at this shape under its own keys."""
+    import numpy as np
+    import torch
+
+    from scail_tpu_torch.ops import attention as A
+    from scail_tpu_torch.ops import sta as S
+
+    _sta_small(rnd, f32)
+    grid, ref, pose, tile, window, wp, pkw = STA_GEOM
+    plan = S.sta_plan(grid, ref, pose, tile, window, wp, pkw)
+    tables = plan.tables("cuda")
+    s = ref + plan.video_len + pose
+    assert s == 48832 and plan.ts == 1344 and plan.table.shape == (28, 11)
+    calls = _sta_calls(plan)
+    # the block mask in the tile-major order the calls see, for SDPA
+    t0 = time.perf_counter()
+    order = plan.order
+    full = S.sta_block_mask(s, grid, ref, pose, tile, window, wp, pkw)
+    masks = {name: torch.from_numpy(full[np.ix_(order[rows], order)]) for name, rows, _ in calls}
+    del full
+    log(f"sta block mask {s}x{s} built in {time.perf_counter() - t0:.1f} s")
+    results, lib_err = {}, {}
+
+    def record(key, err, ms, plain_ms, flops, moved, lib_ms):
+        b_ms, b_by = bound(flops, moved)
+        log(f"{key} (video + pose call): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+            f"plain {plain_ms:.3f} ms, SDPA with the block mask "
+            f"{'none: ' + lib_err[key] if lib_ms is None else f'{lib_ms:.3f} ms'}, "
+            f"bound {b_ms:.3f} ms ({b_by})")
+        results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
+                            bound_by=b_by, library_ms=lib_ms)
+
+    # sampling: K7 without the LSE (timed), and with it, batch 2
+    q, k, v = rnd(2, s, 12, 128), rnd(2, s, 12, 128), rnd(2, s, 12, 128)
+    acc = dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0, moved=0, lib=0.0)
+    lse_err = 0.0
+    for name, rows, ts_q in calls:
+        qc = q[:, rows]
+        o, _ = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q)
+        ol, lse = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q,
+                                     with_lse=True)
+        torch.cuda.synchronize()
+        po, plse = S.sta_windowed_plain(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q)
+        tag = f"(2,{qc.shape[1]},12,128)x{s}"
+        acc["err"] = max(acc["err"], compare(f"sta fwd {name} {tag} out", o, po,
+                                             key="sta_attention_fwd"))
+        lse_err = max(lse_err, compare(f"sta fwd+lse {name} {tag} out", ol, po,
+                                       key="sta_attention_fwd_lse"))
+        compare(f"sta fwd+lse {name} {tag} lse", lse, plse, lse=True)
+        if not torch.equal(o, ol):
+            fail(f"sta fwd {name}: the outputs with and without the LSE differ")
+        del po, plse, ol, lse
+        acc["ms"] += timed_ms(lambda: S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts,
+                                                         ts_q=ts_q))
+        acc["plain_ms"] += timed_ms(lambda: S.sta_windowed_plain(
+            qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q), iters=1)
+        acc["flops"] += 4 * 24 * _sta_pairs(plan, s, ts_q) * 128
+        acc["moved"] += nbytes(qc, k, v, o)
+        lib_ms, lib_err["sta_attention_fwd"] = _sdpa_masked_ms(
+            qc.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), masks[name].cuda(),
+            err=lib_err.get("sta_attention_fwd"))
+        acc["lib"] = None if lib_ms is None or acc["lib"] is None else acc["lib"] + lib_ms
+        del o
+    record("sta_attention_fwd", acc["err"], acc["ms"], acc["plain_ms"], acc["flops"],
+           acc["moved"], acc["lib"])
+    results["flash_attention"] = _ref_rows_fwd(q, k, v, ref)
+    del q, k, v
+    torch.cuda.empty_cache()
+
+    # training: K7 with the LSE, then K8, batch 1
+    q, k, v, do = (rnd(1, s, 12, 128) for _ in range(4))
+    scale = 128 ** -0.5
+    fwd = dict(err=lse_err, ms=0.0, plain_ms=0.0, flops=0, moved=0, lib=0.0)
+    bwd = {g: dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0, moved=0) for g in ("dq", "dkv")}
+    bwd_lib = 0.0
+    for name, rows, ts_q in calls:
+        qc, dc = q[:, rows], do[:, rows]
+        o, lse = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q,
+                                    with_lse=True)
+        torch.cuda.synchronize()
+        po, plse = S.sta_windowed_plain(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q)
+        tag = f"(1,{qc.shape[1]},12,128)x{s}"
+        fwd["err"] = max(fwd["err"], compare(f"sta fwd+lse {name} {tag} out", o, po,
+                                             key="sta_attention_fwd_lse"))
+        compare(f"sta fwd+lse {name} {tag} lse", lse, plse, lse=True)
+        del po, plse
+        fwd["ms"] += timed_ms(lambda: S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts,
+                                                         ts_q=ts_q, with_lse=True))
+        fwd["plain_ms"] += timed_ms(lambda: S.sta_windowed_plain(
+            qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q), iters=1)
+        pairs = _sta_pairs(plan, s, ts_q)
+        fwd["flops"] += 4 * 12 * pairs * 128
+        fwd["moved"] += nbytes(qc, k, v, o, lse)
+        lib_ms, lib_err["sta_attention_fwd_lse"] = _sdpa_masked_ms(
+            qc.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), masks[name].cuda(),
+            err=lib_err.get("sta_attention_fwd_lse"))
+        fwd["lib"] = None if lib_ms is None or fwd["lib"] is None else fwd["lib"] + lib_ms
+
+        q2, lse2, delta = A._bwd_operands(qc, o, lse, dc, scale)
+        ops = (q2, k, v, dc, lse2.contiguous(), delta.contiguous())
+        dq = S.sta_windowed_bwd_dq(*ops, tables.table, ts=plan.ts, ts_q=ts_q, scale=scale)
+        dk, dv = S.sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q)
+        torch.cuda.synchronize()
+        pdq = S.sta_windowed_bwd_plain(qc, k, v, o, lse, dc, tables, ts=plan.ts, ts_q=ts_q,
+                                       grads="dq")[0]
+        bwd["dq"]["err"] = max(bwd["dq"]["err"], compare(f"sta bwd dq {name} {tag}", dq, pdq,
+                                                         key="sta_attention_bwd_dq"))
+        del pdq
+        _, pdk, pdv = S.sta_windowed_bwd_plain(qc, k, v, o, lse, dc, tables, ts=plan.ts,
+                                               ts_q=ts_q, grads="dkv")
+        bwd["dkv"]["err"] = max(bwd["dkv"]["err"], *(
+            compare(f"sta bwd {n} {name} {tag}", g, w, key="sta_attention_bwd_dkv")
+            for n, g, w in (("dk", dk, pdk), ("dv", dv, pdv))))
+        del pdk, pdv
+        bwd["dq"]["ms"] += timed_ms(lambda: S.sta_windowed_bwd_dq(
+            *ops, tables.table, ts=plan.ts, ts_q=ts_q, scale=scale))
+        bwd["dkv"]["ms"] += timed_ms(lambda: S.sta_windowed_bwd_dkv(
+            *ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q))
+        for g in ("dq", "dkv"):
+            bwd[g]["plain_ms"] += timed_ms(lambda: S.sta_windowed_bwd_plain(
+                qc, k, v, o, lse, dc, tables, ts=plan.ts, ts_q=ts_q, grads=g), iters=1)
+        bwd["dq"]["flops"] += 6 * 12 * pairs * 128
+        bwd["dkv"]["flops"] += 8 * 12 * pairs * 128
+        bwd["dq"]["moved"] += nbytes(*ops, dq)
+        bwd["dkv"]["moved"] += nbytes(*ops, dk, dv)
+        lib_ms, lib_err["sta_attention_bwd"] = _sdpa_masked_ms(
+            qc.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), masks[name].cuda(),
+            backward=dc.transpose(1, 2), err=lib_err.get("sta_attention_bwd"))
+        bwd_lib = None if lib_ms is None or bwd_lib is None else bwd_lib + lib_ms
+        del o, lse, q2, ops, dq, dk, dv
+    record("sta_attention_fwd_lse", fwd["err"], fwd["ms"], fwd["plain_ms"], fwd["flops"],
+           fwd["moved"], fwd["lib"])
+    for g in ("dq", "dkv"):
+        lib_err[f"sta_attention_bwd_{g}"] = lib_err["sta_attention_bwd"]
+        record(f"sta_attention_bwd_{g}", bwd[g]["err"], bwd[g]["ms"], bwd[g]["plain_ms"],
+               bwd[g]["flops"], bwd[g]["moved"], bwd_lib)
+    for key, err in lib_err.items():
+        if err and key in results:
+            results[key]["library_error"] = err
+    results.update(_ref_rows_bwd(q, k, v, do, ref))
+    del q, k, v, do, masks
+    torch.cuda.empty_cache()
+    return results
+
+
+def _ref_rows_fwd(q, k, v, ref):
+    """K2 as the STA path runs it at sampling: the last `ref` rows of the
+    tile-major q (a strided view) against every kv row, each output row and
+    LSE against the plain version; times of kernel, plain and SDPA."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.ops import attention as A
+
+    qr = q[:, -ref:]
+    o, lse = A.flash_attention(qr, k, v)
+    torch.cuda.synchronize()
+    po, plse = A.flash_attention_plain(qr, k, v)
+    tag = f"flash (STA ref rows) {tuple(qr.shape)}x{k.shape[1]}"
+    err = compare(f"{tag} out", o, po, key="flash_attention")
+    compare(f"{tag} lse", lse, plse, lse=True)
+    del po, plse
+    ms = timed_ms(lambda: A.flash_attention(qr, k, v))
+    plain_ms = timed_ms(lambda: A.flash_attention_plain(qr, k, v), iters=1)
+    library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        qr.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
+    flops = 4 * q.shape[0] * q.shape[2] * ref * k.shape[1] * 128
+    b_ms, b_by = bound(flops, nbytes(qr, k, v, o, lse))
+    log(f"{tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+        f"SDPA {library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
+
+
+def _ref_rows_bwd(q, k, v, do, ref):
+    """K5 as the STA path runs it in training: dq of the last `ref` q rows
+    and dk/dv of every kv row, against the plain versions (every row), with
+    times of kernel, plain and SDPA's backward.  Returns K5's two entries."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.ops import attention as A
+
+    qr, dr = q[:, -ref:], do[:, -ref:]
+    o, lse = A.flash_attention(qr, k, v)
+    scale = 128 ** -0.5
+    q2, lse2, delta = A._bwd_operands(qr, o, lse, dr, scale)
+    ops = (q2, k, v, dr, lse2.contiguous(), delta.contiguous())
+    dq = A.flash_attention_bwd_dq(*ops, scale=scale)
+    dk, dv = A.flash_attention_bwd_dkv(*ops)
+    torch.cuda.synchronize()
+    tag = f"flash bwd (STA ref rows) {tuple(qr.shape)}x{k.shape[1]}"
+    pdq = A.flash_attention_bwd_plain(qr, k, v, o, lse, dr, grads="dq")[0]
+    err = {"dq": compare(f"{tag} dq", dq, pdq, key="flash_attention_bwd_dq@sta")}
+    del pdq
+    _, pdk, pdv = A.flash_attention_bwd_plain(qr, k, v, o, lse, dr, grads="dkv")
+    err["dkv"] = max(compare(f"{tag} {n}", g, w, key="flash_attention_bwd_dkv@sta")
+                     for n, g, w in (("dk", dk, pdk), ("dv", dv, pdv)))
+    del pdk, pdv
+    ms = {"dq": timed_ms(lambda: A.flash_attention_bwd_dq(*ops, scale=scale)),
+          "dkv": timed_ms(lambda: A.flash_attention_bwd_dkv(*ops))}
+    plain_ms = {g: timed_ms(lambda: A.flash_attention_bwd_plain(qr, k, v, o, lse, dr, grads=g),
+                            iters=1) for g in ("dq", "dkv")}
+    qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (qr, k, v))
+    out = F.scaled_dot_product_attention(qt, kt, vt)
+    library_ms = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dr.transpose(1, 2),
+                                                      retain_graph=True))
+    del out, qt, kt, vt
+    pairs = q.shape[0] * q.shape[2] * ref * k.shape[1]
+    work = {"dq": (6 * pairs * 128, nbytes(*ops, dq)), "dkv": (8 * pairs * 128, nbytes(*ops, dk, dv))}
+    results = {}
+    for g in ("dq", "dkv"):
+        b_ms, b_by = bound(*work[g])
+        log(f"{tag} {g}: kernel {ms[g]:.3f} ms ({work[g][0] / ms[g] / 1e9:.1f} TFLOP/s), plain "
+            f"{plain_ms[g]:.3f} ms, SDPA backward (dq+dk+dv) {library_ms:.3f} ms, bound "
+            f"{b_ms:.3f} ms ({b_by})")
+        results[f"flash_attention_bwd_{g}"] = dict(
+            max_abs_err=err[g], ms=ms[g], plain_ms=plain_ms[g], bound_ms=b_ms, bound_by=b_by,
+            library_ms=library_ms, max_err_per_std=PER_STD[f"flash_attention_bwd_{g}@sta"])
+    return results
+
+
+def _build_dit(**params):
     import torch
     import yaml
 
@@ -319,7 +656,7 @@ def _build_dit():
 
     with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
         nc = yaml.safe_load(f)["model"]["network_config"]
-    nc["params"].update(dtype="bf16", use_i2v_clip=True)
+    nc["params"].update(dtype="bf16", use_i2v_clip=True, **params)
     net = instantiate_from_config(nc)
     dit = net.build(torch.device("cuda"))
     dit.init_weights_(torch.Generator(device="cuda").manual_seed(1))
@@ -443,29 +780,18 @@ TRAIN_LAUNCHES_PER_STEP = {"flash_attention_rope": 60, "dual_cross_attention": 6
 RESUME_LAYERS = 4
 
 
-def phase_train(ex81):
-    """The train CLI at full width and depth: 2 steps (the main path), then
-    the DiT's gradients, kernel path against plain path; then save and
-    resume at RESUME_LAYERS layers: 2 steps saved, 1 step resumed."""
-    import dataclasses
-    import gc
+def _train(argv, want_per_step, label):
+    """The train CLI for 2 steps at full width and depth (`argv`): finite
+    losses, the DiT's parameters move, exactly `want_per_step` kernel launches
+    per step.  Returns (trainer, launch counts, stats)."""
     import math
-    import shutil
 
     import torch
-    import yaml
 
     from scail_tpu_torch.cli import train
     from scail_tpu_torch.ops import attention as A
     from scail_tpu_torch.training.engine import Trainer
 
-    data_root = os.path.join(WORK, "train_data")
-    os.makedirs(data_root, exist_ok=True)
-    if not os.path.exists(os.path.join(data_root, "000")):
-        os.symlink(ex81, os.path.join(data_root, "000"))
-    base = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
-    argv = ["--data-root", data_root, "--image-size", "512", "896", "--num-frames", "81",
-            "--batch-size", "1", "--warmup-iters", "1", "--seed", "0", "--device", "cuda"]
     watched = ("layers.0.qkv.weight", "layers.29.mlp_out.weight", "final_layer.linear.weight",
                "patch_embed.proj.weight")
     seen = {"before": {}, "step_s": []}
@@ -486,8 +812,8 @@ def phase_train(ex81):
 
     Trainer.fit, Trainer.train_step = fit, train_step
     try:
-        full = ["--base", base] + argv + ["--train-iters", "2"]
-        log("train: python -m scail_tpu_torch.cli.train " + " ".join(full))
+        full = argv + ["--train-iters", "2"]
+        log(f"{label}: python -m scail_tpu_torch.cli.train " + " ".join(full))
         torch.cuda.reset_peak_memory_stats()
         A.reset_launch_counts()
         t0 = time.perf_counter()
@@ -502,41 +828,83 @@ def phase_train(ex81):
     losses = [m["loss"] for m in trainer.history]
     moved = {n: (trainer.params[n].detach() - seen["before"][n]).abs().max().item()
              for n in watched}
-    log(f"train: 2 steps in {total:.1f} s (with engine build and data); step seconds "
+    log(f"{label}: 2 steps in {total:.1f} s (with engine build and data); step seconds "
         f"{[round(x, 2) for x in step_s]}; losses {losses}; grad norms "
         f"{[m['grad_norm'] for m in trainer.history]}; peak allocated {peak_gb:.2f} GB; "
         f"launches {counts}; largest parameter change {moved}")
-    want = {k: 2 * v for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
-    if {k: counts[k] for k in want} != want:
-        fail(f"expected {want} launches in 2 training steps, got {counts}")
+    _exact(counts, {k: 2 * v for k, v in want_per_step.items()}, f"{label}, 2 training steps")
     if trainer.step != 2 or not all(math.isfinite(x) for x in losses) or \
             not all(m["ok"] for m in trainer.history):
-        fail(f"training did not take 2 finite steps: {trainer.history}")
+        fail(f"{label}: training did not take 2 finite steps: {trainer.history}")
     if not all(v > 0 for v in moved.values()):
-        fail(f"the DiT's parameters did not change: {moved}")
+        fail(f"{label}: the DiT's parameters did not change: {moved}")
+    return trainer, counts, {"step_s": step_s, "losses": losses, "peak_gb": peak_gb}
 
-    # gradients of the trained DiT, kernel path against plain path, small input
-    dit = trainer.model
+
+def _grad_parity(dit, kernel, plain, small, label):
+    """Relative L2 distance of the DiT's parameter gradients on the kernel
+    path (config fields `kernel`) from the plain path (`plain`), batch 1 of a
+    small latent `small` = (T, H, W); fails past GRAD_REL_TOL."""
+    import dataclasses
+
+    import torch
+
     cfg = dit.config
-    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(4), 3, 16, 16)
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(4), *small)
     x, t, ctx = (inp.pop(k)[:1] for k in ("x", "timesteps", "context"))
     inp = {k: v[:1] for k, v in inp.items()}
     w = torch.randn(x.shape, generator=torch.Generator(device="cuda").manual_seed(5),
                     device="cuda")
     grads = []
-    for impl in ("auto", "xla"):
-        dit.config = dataclasses.replace(cfg, attn_impl=impl)
+    for fields in (kernel, plain):
+        dit.config = dataclasses.replace(cfg, **fields)
         dit.zero_grad(set_to_none=True)
         (dit(x, t, ctx, **inp).float() * w).sum().backward()
         grads.append(torch.cat([(p.grad if p.grad is not None else torch.zeros_like(p))
                                 .float().flatten() for p in dit.parameters()]))
     dit.config = cfg
+    dit.zero_grad(set_to_none=True)
     rel = ((grads[0] - grads[1]).norm() / grads[1].norm()).item()
-    log(f"DiT parameter gradients, kernel path vs plain path (1, 3, 16, 16, 16): relative "
-        f"L2 {rel:.3e} (tol {GRAD_REL_TOL})")
+    log(f"{label}: DiT parameter gradients, kernel path vs plain path (1, {small[0]}, 16, "
+        f"{small[1]}, {small[2]}): relative L2 {rel:.3e} (tol {GRAD_REL_TOL})")
     if not rel < GRAD_REL_TOL:
-        fail("the DiT's gradients on the kernel path disagree with the plain path")
-    del trainer, dit, grads
+        fail(f"{label}: the DiT's gradients on the kernel path disagree with the plain path")
+    return rel
+
+
+def _train_argv(base, data_root):
+    return ["--base", base, "--data-root", data_root, "--image-size", "512", "896",
+            "--num-frames", "81", "--batch-size", "1", "--warmup-iters", "1", "--seed", "0",
+            "--device", "cuda"]
+
+
+def _data_root(ex81):
+    data_root = os.path.join(WORK, "train_data")
+    os.makedirs(data_root, exist_ok=True)
+    if not os.path.exists(os.path.join(data_root, "000")):
+        os.symlink(ex81, os.path.join(data_root, "000"))
+    return data_root
+
+
+def phase_train(ex81):
+    """The train CLI at full width and depth: 2 steps (the main path), then
+    the DiT's gradients, kernel path against plain path; then save and
+    resume at RESUME_LAYERS layers: 2 steps saved, 1 step resumed."""
+    import gc
+    import math
+    import shutil
+
+    import torch
+    import yaml
+
+    from scail_tpu_torch.cli import train
+
+    base = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
+    argv = _train_argv(base, _data_root(ex81))
+    trainer, counts, stats = _train(argv, TRAIN_LAUNCHES_PER_STEP, "train")
+    stats["grad_rel"] = _grad_parity(trainer.model, {"attn_impl": "auto"}, {"attn_impl": "xla"},
+                                     (3, 16, 16), "train")
+    del trainer
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -549,7 +917,7 @@ def phase_train(ex81):
         yaml.safe_dump(cut, f)
     save = os.path.join(WORK, "train_run")
     shutil.rmtree(save, ignore_errors=True)
-    short = ["--base", cut_yaml, "--save", save] + argv
+    short = _train_argv(cut_yaml, _data_root(ex81)) + ["--save", save]
     t0 = time.perf_counter()
     first = train.main(short + ["--train-iters", "2"])
     saved = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(save) for n in ns)
@@ -569,7 +937,142 @@ def phase_train(ex81):
     shutil.rmtree(save, ignore_errors=True)
     gc.collect()
     torch.cuda.empty_cache()
-    return counts, {"step_s": step_s, "losses": losses, "peak_gb": peak_gb, "grad_rel": rel}
+    return counts, stats
+
+
+# the STA DiT's launches: per forward, the video and the pose windowed calls
+# (K7) and the dense ref rows (K2) in each of 30 layers, and the dual cross-
+# attention (K3); per training step with remat, forward and recompute of
+# those, K7 with the LSE, and one backward of each windowed call (K8) and of
+# the ref rows (K5)
+STA_DIT_LAUNCHES = {"sta_attention_fwd": 60, "flash_attention": 30, "dual_cross_attention": 30}
+STA_TRAIN_LAUNCHES_PER_STEP = {"sta_attention_fwd_lse": 120, "flash_attention": 60,
+                               "dual_cross_attention": 60, "sta_attention_bwd_dq": 60,
+                               "sta_attention_bwd_dkv": 60, "flash_attention_bwd_dq": 30,
+                               "flash_attention_bwd_dkv": 30}
+# a small latent (T, H, W) at which the DiT's default STA runs with the
+# windowed pose and the pose-kv window: Hp 32, Wp 8, ts 192, pose tiles of 48
+STA_SMALL = (3, 64, 16)
+
+
+def _exact(counts, want, what):
+    """Fail unless each kernel launched exactly as `want` says (0 where unnamed)."""
+    got = {k: v for k, v in counts.items() if v}
+    want = {k: v for k, v in want.items() if v}
+    if got != want:
+        fail(f"{what}: expected launches {want}, got {got}")
+
+
+def phase_dit_sta():
+    """The 1.3B DiT with attn_impl='sta' (the JAX defaults), all 30 layers, CFG
+    batch 2 at 48,832 tokens: exact launches, a finite output, its time; its
+    kernel path against its plain path (sta_impl='xla') on a small input."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.ops import attention as A
+
+    dit = _build_dit(attn_impl="sta")
+    cfg = dit.config
+    assert (cfg.sta_tile, cfg.sta_window, cfg.sta_windowed_pose, cfg.sta_pose_kv_window) == \
+        ((3, 8), (3, 2), True, 3), cfg
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(2), 21, 64, 112)
+    x, t, ctx = inp.pop("x"), inp.pop("timesteps"), inp.pop("context")
+    with torch.inference_mode():
+        dit(x, t, ctx, **inp)  # warm-up
+        torch.cuda.synchronize()
+        A.reset_launch_counts()
+        t0 = time.perf_counter()
+        out = dit(x, t, ctx, **inp)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    counts = dict(A.LAUNCHES)
+    log(f"STA DiT 1.3B forward, CFG batch 2, 48,832 tokens: {fwd_ms:.1f} ms; launches {counts}")
+    _exact(counts, STA_DIT_LAUNCHES, "one STA DiT forward")
+    if tuple(out.shape) != (2, 21, 16, 64, 112) or not torch.isfinite(out).all():
+        fail(f"STA DiT output bad: shape {tuple(out.shape)}, finite "
+             f"{bool(torch.isfinite(out).all())}")
+    del out, x, ctx, inp
+
+    small = _dit_inputs(torch.Generator(device="cuda").manual_seed(3), *STA_SMALL)
+    xs, ts = small.pop("x"), small.pop("timesteps")
+    ctx = small.pop("context")
+    with torch.inference_mode():
+        A.reset_launch_counts()
+        got = dit(xs, ts, ctx, **small).float()
+        _exact(dict(A.LAUNCHES), STA_DIT_LAUNCHES, "STA DiT forward on the small input")
+        dit.config = dataclasses.replace(cfg, sta_impl="xla")
+        want = dit(xs, ts, ctx, **small).float()
+        dit.config = cfg
+    rel = ((got - want).norm() / want.norm()).item()
+    log(f"STA DiT kernel path vs plain path (2, {STA_SMALL[0]}, 16, {STA_SMALL[1]}, "
+        f"{STA_SMALL[2]}): relative L2 {rel:.3e} (tol {DIT_REL_TOL})")
+    if not rel < DIT_REL_TOL:
+        fail("STA DiT kernel path disagrees with the plain path")
+    del dit
+    torch.cuda.empty_cache()
+    return fwd_ms
+
+
+def phase_cli_sta(ex81):
+    """The sampling CLI with --attn-impl sta: one 81-frame 512x896 request,
+    2 steps, exactly 2 forwards' launches; the .mp4 decodes to 81 frames."""
+    import numpy as np
+
+    from scail_tpu_torch.cli import sample_video
+    from scail_tpu_torch.data.video import load_video_frames
+    from scail_tpu_torch.ops import attention as A
+
+    prompts = os.path.join(WORK, "prompts_sta.txt")
+    with open(prompts, "w") as f:
+        f.write(f"a character dancing@@{ex81}\n")
+    argv = ["--base", os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml"),
+            os.path.join(ROOT, "configs", "sampling", "pose_cli.yaml"),
+            "--input-type", "txt", "--input-file", prompts, "--sampling-steps", "2",
+            "--attn-impl", "sta", "--device", "cuda",
+            "--output-dir", os.path.join(WORK, "samples_sta")]
+    log("CLI STA: python -m scail_tpu_torch.cli.sample_video " + " ".join(argv))
+    A.reset_launch_counts()
+    records = sample_video.main(argv)
+    counts = dict(A.LAUNCHES)
+    rec = records[0]
+    out = rec["outputs"][0]
+    decoded = load_video_frames(out)[0]
+    log(f"CLI STA answered {len(records)} request in {rec['seconds']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rec["phases"].items())
+        + f"); {os.path.relpath(out, ROOT)} decodes to {decoded.shape} (mean "
+        f"{decoded.mean():.1f}), samples finite {rec['finite']}; kernel launches {counts}")
+    _exact(counts, {k: 2 * v for k, v in STA_DIT_LAUNCHES.items()}, "STA CLI, 2 steps")
+    if len(records) != 1 or not (rec["finite"] and out.endswith(".mp4")
+                                 and decoded.shape == (81, 512, 896, 3) and np.ptp(decoded) > 0):
+        fail("STA request: expected one .mp4 of 81 finite, non-constant 512x896 frames")
+    return counts, rec
+
+
+def phase_train_sta(ex81):
+    """The train CLI with an `attn_impl: sta` YAML (written under
+    build/chip_smoke/) at full width and depth: 2 steps with exact launches,
+    then the DiT's gradients, kernel path against plain path."""
+    import gc
+
+    import torch
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    cfg["model"]["network_config"]["params"]["attn_impl"] = "sta"
+    sta_yaml = os.path.join(WORK, "scail_1p3b_sta.yaml")
+    with open(sta_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    trainer, counts, stats = _train(_train_argv(sta_yaml, _data_root(ex81)),
+                                    STA_TRAIN_LAUNCHES_PER_STEP, "train STA")
+    stats["grad_rel"] = _grad_parity(trainer.model, {"sta_impl": "auto"}, {"sta_impl": "xla"},
+                                     STA_SMALL, "train STA")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, stats
 
 
 def main():
@@ -577,39 +1080,52 @@ def main():
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
+    t_start = time.perf_counter()
     card = phase_device()
     build_s = phase_build()
     kernels = phase_kernels()
     dit_ms = phase_dit()
+    sta_dit_ms = phase_dit_sta()
     sample_counts, records = phase_cli()
-    train_counts, train = phase_train(os.path.join(WORK, "synthetic_081"))
+    ex81 = os.path.join(WORK, "synthetic_081")
+    sta_sample_counts, sta_record = phase_cli_sta(ex81)
+    train_counts, train = phase_train(ex81)
+    sta_train_counts, sta_train = phase_train_sta(ex81)
 
     import torch
 
-    log(f"summary: build {build_s:.2f} s; DiT forward {dit_ms:.1f} ms; requests "
+    log(f"summary: build {build_s:.2f} s; DiT forward {dit_ms:.1f} ms, with STA "
+        f"{sta_dit_ms:.1f} ms; requests "
         + ", ".join(f"{r['case']} {r['seconds']:.2f} s ({r['frames']} frames)" for r in records)
-        + f"; training steps {[round(x, 2) for x in train['step_s']]} s, peak "
-        f"{train['peak_gb']:.2f} GB; card {card}")
+        + f", with STA {sta_record['case']} {sta_record['seconds']:.2f} s; training steps "
+        f"{[round(x, 2) for x in train['step_s']]} s, peak {train['peak_gb']:.2f} GB, with STA "
+        f"{[round(x, 2) for x in sta_train['step_s']]} s, peak {sta_train['peak_gb']:.2f} GB; "
+        f"whole run {time.perf_counter() - t_start:.0f} s; card {card}")
+
+    paths = {"sample_cli": sample_counts, "train_cli": train_counts,
+             "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts}
 
     def entry(name, source, replaces):
-        by_path = {"sample_cli": sample_counts[name], "train_cli": train_counts[name]}
+        by_path = {path: counts[name] for path, counts in paths.items()}
         return {"name": name, "route": "cuda", "source": source, "replaces": replaces,
                 "launches": sum(by_path.values()), "launches_by_path": by_path,
-                **kernels[name]}
+                "max_err_per_std": PER_STD[name], **kernels[name]}
 
-    flash_src = "scail_tpu_torch/csrc/flash_attention.cu"
-    bwd_src = "scail_tpu_torch/csrc/flash_attention_bwd.cu"
-    report = {
-        "kernels": [
-            entry("flash_attention_rope", flash_src, "scail_tpu/ops/attention.py:403"),
-            entry("dual_cross_attention", "scail_tpu_torch/csrc/dual_cross_attention.cu",
-                  "scail_tpu/ops/attention.py:875"),
-            entry("flash_attention_bwd_dq", bwd_src, "scail_tpu/ops/attention.py:251"),
-            entry("flash_attention_bwd_dkv", bwd_src, "scail_tpu/ops/attention.py:286"),
-        ],
-        # the no-rope instantiation of the flash kernel is off both main paths
-        "off_path": [entry("flash_attention", flash_src, "scail_tpu/ops/attention.py:68")],
-    }
+    csrc = "scail_tpu_torch/csrc/"
+    report = {"kernels": [
+        entry("flash_attention_rope", csrc + "flash_attention.cu", "scail_tpu/ops/attention.py:403"),
+        entry("flash_attention", csrc + "flash_attention.cu", "scail_tpu/ops/attention.py:68"),
+        entry("dual_cross_attention", csrc + "dual_cross_attention.cu",
+              "scail_tpu/ops/attention.py:875"),
+        entry("flash_attention_bwd_dq", csrc + "flash_attention_bwd.cu",
+              "scail_tpu/ops/attention.py:251"),
+        entry("flash_attention_bwd_dkv", csrc + "flash_attention_bwd.cu",
+              "scail_tpu/ops/attention.py:286"),
+        entry("sta_attention_fwd", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:159"),
+        entry("sta_attention_fwd_lse", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:159"),
+        entry("sta_attention_bwd_dq", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:246"),
+        entry("sta_attention_bwd_dkv", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:279"),
+    ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",
                                              "kind": torch.cuda.get_device_name(0),

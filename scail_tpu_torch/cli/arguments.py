@@ -3,17 +3,22 @@
 `--base a.yaml b.yaml` YAMLs are merged (utils/config.py);
 their `args:` block fills the runtime namespace and `model:` is the model
 graph.  `--device` (default cuda) takes the place of the JAX `--platform`.
+A `sta_validated.json` marker with `"validated": true` in the `--load`
+checkpoint dir makes sliding-tile attention the default; `--attn-impl`
+overrides it.
 """
 
 from __future__ import annotations
 
 import argparse
+import json
+import os
 from types import SimpleNamespace
 
 from scail_tpu_torch.utils.config import load_configs, split_reference_config
 
-# 'auto' runs the CUDA kernels, 'xla' the plain versions; the port's DiT
-# raises for the JAX CLI's values that are not ported yet
+# 'auto' runs the CUDA kernels, 'xla' the plain versions, 'sta' sliding-tile
+# attention; the port's DiT raises for the JAX CLI's values not ported yet
 ATTN_IMPLS = [None, "auto", "xla", "pallas_int8", "ulysses", "sta"]
 
 
@@ -65,8 +70,22 @@ def get_args(argv=None):
         sc = dict(model_cfg.get("sampler_config", {}))
         sc["params"] = dict(sc.get("params", {}), num_steps=cli.sampling_steps)
         model_cfg["sampler_config"] = sc
-    if cli.attn_impl is not None:
+    attn_impl = cli.attn_impl
+    if attn_impl is None and args.load:
+        # once the STA quality check passed for this checkpoint, sliding-tile
+        # sampling is the default
+        marker = os.path.join(str(args.load), "sta_validated.json")
+        try:
+            if os.path.isfile(marker):
+                with open(marker) as f:
+                    if json.load(f).get("validated"):
+                        attn_impl = "sta"
+                        print("[scail] sta_validated.json found: defaulting "
+                              "to attn_impl='sta' (override with --attn-impl)")
+        except (OSError, ValueError):
+            pass
+    if attn_impl is not None:
         nc = dict(model_cfg.get("network_config", {}))
-        nc["params"] = dict(nc.get("params", {}), attn_impl=cli.attn_impl)
+        nc["params"] = dict(nc.get("params", {}), attn_impl=attn_impl)
         model_cfg["network_config"] = nc
     return args, model_cfg

@@ -6,26 +6,32 @@ CLI does without a checkpoint) and profiles, each after one warm-up call:
 
   * dit        -- one DiT forward at CFG batch 2, 512x896, 81 frames (48,832
                   tokens): the denoise step of the sampling loop;
+  * dit_sta    -- the same with attn_impl='sta' (sliding-tile attention at the
+                  JAX package's defaults: tile (3, 8), window (3, 2));
   * vae_encode -- the streamed encode of 81 frames at 512x896;
   * pose_encode -- the streamed encode of the 2x2-downsampled pose video;
   * vae_decode -- the streamed decode of 21 latent frames to 81 frames;
   * train_step -- one Trainer step of the train CLI at batch 1, 512x896, 81
                   frames: the VAE encodes, CLIP, the remat DiT forward and
                   backward (f32 parameters, bf16 compute) and the clipped
-                  EMA-Adam update.
+                  EMA-Adam update;
+  * train_step_sta -- the same step with attn_impl='sta'.
 
 Per phase: wall ms, device ms (the sum of kernel and memcpy/memset times that
 torch.profiler reads from CUPTI), device busy share (device ms / wall ms, one
-stream), peak allocated memory, and device ms by group (the two attention
-kernels, GEMMs, convolutions, the rest).  Prints one JSON line per phase and
-writes each phase's kernel table under --out.
+stream), peak allocated memory, and device ms by group (each attention
+kernel: K1 flash_attention, K2 flash_attention_norope, K5 flash_attention_bwd,
+K3 dual_cross_attention, K7 sta_attention, K8 sta_attention_bwd; GEMMs,
+convolutions, copies, the rest).  Prints one JSON line per phase and writes
+each phase's kernel table under --out.
 
-  python -m scail_tpu_torch.cli.profile [--out build/profile]
+  python -m scail_tpu_torch.cli.profile [--out build/profile] [--phases dit ...]
 """
 
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import time
@@ -33,10 +39,15 @@ import time
 import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
-PHASES = ("dit", "vae_encode", "pose_encode", "vae_decode", "train_step")
+PHASES = ("dit", "dit_sta", "vae_encode", "pose_encode", "vae_decode", "train_step",
+          "train_step_sta")
 # kernel-name substrings by group, first match wins
-GROUPS = (("flash_attention", ("flash_fwd_kernel",)),
+# (K1 keeps the name `flash_attention` it had before K2 was on a path)
+GROUPS = (("flash_attention_norope", ("flash_fwd_kernel<0>",)),
+          ("flash_attention", ("flash_fwd_kernel",)),
           ("flash_attention_bwd", ("flash_bwd_",)),
+          ("sta_attention", ("sta_fwd_kernel",)),
+          ("sta_attention_bwd", ("sta_bwd_",)),
           ("dual_cross_attention", ("dual_cross_kernel",)),
           ("conv", ("fprop", "dgrad", "wgrad", "conv", "winograd")),
           ("gemm", ("gemm", "nvjet", "cutlass")),
@@ -93,6 +104,7 @@ def main(argv=None):
     p = argparse.ArgumentParser("scail_tpu_torch.cli.profile")
     p.add_argument("--out", default=os.path.join(ROOT, "build", "profile"),
                    help="directory for the per-phase kernel tables")
+    p.add_argument("--phases", nargs="+", default=list(PHASES), choices=PHASES)
     a = p.parse_args(argv)
     if not torch.cuda.is_available():
         raise RuntimeError("profiling needs an NVIDIA GPU: CUDA is not available")
@@ -119,21 +131,36 @@ def main(argv=None):
     pose, clip = rnd(2, T, 16, H // 2, W // 2), rnd(2, 257, 1280)
     t = torch.full((2,), 900.0, device="cuda")
     video, pose_video, z = rnd(1, 81, 3, 512, 896), rnd(1, 81, 3, 256, 448), rnd(1, T, 16, H, W)
+    dense_cfg = engine.network.config
+    sta_cfg = dataclasses.replace(dense_cfg, attn_impl="sta")
+
+    def dit():
+        return engine.dit(x, t, ctx, ref_concat=ref, concat_smpl_render=pose,
+                          image_clip_features=clip)
+
     calls = {
-        "dit": lambda: engine.dit(x, t, ctx, ref_concat=ref, concat_smpl_render=pose,
-                                  image_clip_features=clip),
-        "vae_encode": lambda: engine.encode_first_stage(video, force_encode=True),
-        "pose_encode": lambda: engine.encode_first_stage(pose_video, force_encode=True),
-        "vae_decode": lambda: engine.decode_first_stage(z),
+        "dit": (dense_cfg, dit),
+        "dit_sta": (sta_cfg, dit),
+        "vae_encode": (dense_cfg, lambda: engine.encode_first_stage(video, force_encode=True)),
+        "pose_encode": (dense_cfg, lambda: engine.encode_first_stage(pose_video,
+                                                                     force_encode=True)),
+        "vae_decode": (dense_cfg, lambda: engine.decode_first_stage(z)),
     }
     card = torch.cuda.get_device_name(0)
-    for name in PHASES[:-1]:
+    for name in (n for n in PHASES if n in calls and n in a.phases):
+        engine.dit.config, fn = calls[name]
         with torch.inference_mode():
-            rec = profile_phase(name, calls[name], a.out)
+            rec = profile_phase(name, fn, a.out)
         print(json.dumps(dict(rec, device=card)), flush=True)
     del calls, x, ctx, ref, pose, clip, z
-    rec = profile_phase("train_step", _train_step_call(engine, gen), a.out)
-    print(json.dumps(dict(rec, device=card)), flush=True)
+    train = [n for n in ("train_step", "train_step_sta") if n in a.phases]
+    if train:
+        step = _train_step_call(engine, gen)
+        for name in train:
+            engine.dit.config = sta_cfg if name.endswith("_sta") else dense_cfg
+            rec = profile_phase(name, step, a.out)
+            print(json.dumps(dict(rec, device=card)), flush=True)
+    engine.dit.config = dense_cfg
 
 
 def _train_step_call(engine, gen):

@@ -8,7 +8,9 @@ rotary fused into the kernel for q, the summed text + CLIP dual
 cross-attention kernel, a GELU(tanh) MLP, and the AdaLN final layer with
 unpatchify of the video tokens.
 
-Single-device dense path only: the JAX package's STA, Ulysses, ring,
+Single device.  attn_impl='sta' keeps the layer stack in the sliding-tile
+order of ops/sta.py (one gather before the layers, one after) with q and k
+roped in torch, as the JAX package does; the JAX package's Ulysses, ring,
 int8-attention and MoE options raise NotImplementedError.  For training,
 `remat` checkpoints each layer (the JAX `default` remat policy); the policies
 that save or offload the flash outputs raise.  Parameters may be f32 (training)
@@ -31,7 +33,8 @@ from scail_tpu_torch.models.common import (container, dense, gelu_exact, gelu_ta
 from scail_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
 from scail_tpu_torch.ops.attention import attention, dual_cross_attention
 from scail_tpu_torch.ops.norms import layer_norm, modulate, rms_norm
-from scail_tpu_torch.ops.rotary import build_scail_rope
+from scail_tpu_torch.ops.rotary import apply_rotary, build_scail_rope
+from scail_tpu_torch.ops.sta import sta_attention, sta_plan
 from scail_tpu_torch.utils.registry import register
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -39,7 +42,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch
 # attn_impl values of the JAX package that the port does not run yet, with
 # the ROADMAP item that brings each
 UNPORTED_ATTN = {
-    "sta": "ROADMAP Queue 2: STA kernels (K7, K8)",
     "pallas_int8": "ROADMAP Queue 2: int8 flash attention (K6)",
     "ulysses": "ROADMAP Queue 1: torch.distributed sequence parallelism (Ulysses)",
     "ring": "ROADMAP Queue 1: torch.distributed sequence parallelism (ring attention)",
@@ -79,6 +81,17 @@ class DiTConfig:
     remat: bool = False
     remat_policy: str = "default"
     attn_impl: str = "auto"
+    # attn_impl='sta' (ops/sta.py): strip tiles of (sta_tile[0] latent frames,
+    # sta_tile[1] latent rows, full width), the clamped window in tiles, the
+    # half-res pose queries windowed too, and the t-window (in strips) of
+    # attention into the pose region (0 = dense); the JAX package's defaults
+    sta_tile: tuple = (3, 8)
+    sta_window: tuple = (3, 2)
+    sta_windowed_pose: bool = True
+    sta_pose_kv_window: int = 3
+    # the port's own: which attention impl the STA calls and the
+    # cross-attention take under attn_impl='sta' ('auto' kernels, 'xla' plain)
+    sta_impl: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -119,6 +132,10 @@ class DiTConfig:
             num_experts=p.get("num_experts", 1),
             moe_top_k=p.get("moe_top_k", 2),
             attn_impl=p.get("attn_impl", "auto"),
+            sta_tile=tuple(p.get("sta_tile", (3, 8))),
+            sta_window=tuple(p.get("sta_window", (3, 2))),
+            sta_windowed_pose=p.get("sta_windowed_pose", True),
+            sta_pose_kv_window=p.get("sta_pose_kv_window", 3),
             remat=p.get("remat", False),
             remat_policy=p.get("remat_policy", "default"),
             dtype={"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}.get(
@@ -134,9 +151,11 @@ class DiTConfig:
         if self.attn_impl in UNPORTED_ATTN:
             raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported: "
                                       f"{UNPORTED_ATTN[self.attn_impl]}")
-        if self.attn_impl not in ATTN_IMPLS:
+        if self.attn_impl not in ATTN_IMPLS + ("sta",):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}, expected one of "
-                             f"{ATTN_IMPLS} (kernels, plain)")
+                             f"{ATTN_IMPLS} (kernels, plain) or 'sta'")
+        if self.sta_impl not in ATTN_IMPLS:
+            raise ValueError(f"unknown sta_impl {self.sta_impl!r}, expected one of {ATTN_IMPLS}")
         if self.remat and self.remat_policy in UNPORTED_REMAT:
             raise NotImplementedError(f"remat_policy={self.remat_policy!r} is not ported: "
                                       "ROADMAP Queue 1 item 12 (remat policies that save "
@@ -208,6 +227,7 @@ class DiT(nn.Module):
                                        fc2=lin(cfg.cfg_embed_dim, cfg.cfg_embed_dim))
         self.layers = nn.ModuleList(DiTBlock(cfg, device) for _ in range(cfg.num_layers))
         self._rope_cache = {}
+        self._sta_cache = {}
 
     def init_weights_(self, generator: torch.Generator) -> None:
         """Random smoke-mode init with the JAX package's scales: N(0, 0.02)
@@ -235,6 +255,45 @@ class DiT(nn.Module):
                 pose_w_offset=cfg.pose_w_offset, theta=cfg.rope_theta,
                 interleaved=cfg.interleaved_rope, device=device)
         return self._rope_cache[key]
+
+    def _sta(self, T, Hp, Wp, h_shift, w_shift, device):
+        """The sliding-tile layout of a geometry, or None where the tiles do
+        not divide (T, Hp): the JAX dit_forward's conditions and messages,
+        printed once per geometry."""
+        cfg = self.config
+        tile = tuple(cfg.sta_tile)
+        key = (T, Hp, Wp, h_shift, w_shift, str(device), tile, tuple(cfg.sta_window),
+               cfg.sta_windowed_pose, cfg.sta_pose_kv_window)
+        if key in self._sta_cache:
+            return self._sta_cache[key]
+        layout = None
+        if T % tile[0] or Hp % tile[1]:
+            print(f"[sta] tile {cfg.sta_tile} does not divide (T={T}, Hp={Hp}); "
+                  f"falling back to dense attention for this geometry")
+        else:
+            windowed_pose = cfg.sta_windowed_pose
+            if windowed_pose and (Wp % 2 or tile[1] % 2 or (tile[0] * tile[1] * Wp) % 32):
+                print(f"[sta] windowed pose disabled: needs even Wp/tile_h and "
+                      f"ts % 32 == 0 (Wp={Wp}, tile={cfg.sta_tile}); pose "
+                      f"queries stay dense")
+                windowed_pose = False
+            ref_len, pose_len = Hp * Wp, T * (Hp // 2) * (Wp // 2)
+            kwargs = dict(grid_thw=(T, Hp, Wp), ref_len=ref_len, pose_len=pose_len,
+                          tile=tile, window=tuple(cfg.sta_window),
+                          windowed_pose=windowed_pose, pose_kv_window=cfg.sta_pose_kv_window)
+            # the plan sta_attention takes from the same cache for every layer
+            # (positional, as it calls sta_plan)
+            plan = sta_plan((T, Hp, Wp), ref_len, pose_len, tile, tuple(cfg.sta_window),
+                            bool(windowed_pose), int(cfg.sta_pose_kv_window))
+            order = torch.from_numpy(plan.order).to(device)
+            rope = self._rope(T, Hp, Wp, h_shift, w_shift, device)
+            layout = _StaLayout(
+                order=order,
+                video_rows=torch.from_numpy(plan.inverse[ref_len:ref_len + T * Hp * Wp])
+                .to(device),
+                cos=rope.cos[order], sin=rope.sin[order], kwargs=kwargs)
+        self._sta_cache[key] = layout
+        return layout
 
     def forward(self, x, timesteps, context, *, ref_concat, concat_smpl_render,
                 image_clip_features=None, history_mask=None, cfg_scale=None,
@@ -287,10 +346,18 @@ class DiT(nn.Module):
         ], dim=1)
         ref_len = Hp * Wp
         seq_len = T * Hp * Wp
-        rope = self._rope(T, Hp, Wp, h_shift, w_shift, dev)
+        # self-attention positions: the rope tables, or under attn_impl='sta'
+        # the tile-major layout the whole layer stack is held in
+        attn_pos = self._rope(T, Hp, Wp, h_shift, w_shift, dev)
+        video_rows = slice(ref_len, ref_len + seq_len)
+        if cfg.attn_impl == "sta":
+            sta = self._sta(T, Hp, Wp, h_shift, w_shift, dev)
+            if sta is not None:
+                hidden = hidden[:, sta.order]
+                attn_pos, video_rows = sta, sta.video_rows
         remat = cfg.remat and torch.is_grad_enabled()
         for blk in self.layers:
-            args = (blk, hidden, emb, adaln_emb, context, clip_tokens, rope)
+            args = (blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos)
             # remat: keep only each layer's input, recompute the layer in the
             # backward (the JAX `default` policy: jax.checkpoint per layer)
             hidden = (checkpoint(self._layer, *args, use_reentrant=False) if remat
@@ -302,16 +369,18 @@ class DiT(nn.Module):
         else:
             fmod = dense(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
         # only the video tokens are unpatchified: project just those rows
-        out = layer_norm(hidden[:, ref_len:ref_len + seq_len], eps=eps)
+        out = layer_norm(hidden[:, video_rows], eps=eps)
         out = dense(fl.linear, modulate(out, fmod[:, 0:1], fmod[:, 1:2]))
         return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
 
-    def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, rope):
-        """One DiT block: AdaLN self-attention (q roped in the kernel), the
-        dual text + CLIP cross-attention, and the AdaLN GELU-tanh MLP."""
+    def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos):
+        """One DiT block: AdaLN self-attention (q roped in the kernel, or q
+        and k roped in torch for sliding-tile attention), the dual text +
+        CLIP cross-attention, and the AdaLN GELU-tanh MLP."""
         cfg = self.config
         eps = cfg.layernorm_epsilon
-        impl = cfg.attn_impl
+        # under 'sta' the dense fallback and the cross-attention take sta_impl
+        impl = cfg.sta_impl if cfg.attn_impl == "sta" else cfg.attn_impl
 
         def heads(t):
             return t.unflatten(-1, (cfg.num_heads, -1))
@@ -325,13 +394,20 @@ class DiT(nn.Module):
             mod = dense(blk.adaln_mlp, silu(emb)).reshape(emb.shape[0], 6, -1)
         s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.unsqueeze(2).unbind(1)
 
-        # self attention: q roped inside the kernel, k in plain torch
+        # self attention: q roped inside the kernel, k in plain torch; or
+        # both roped in torch (in q's dtype, as JAX _rope_per_head) for STA
         ai = modulate(layer_norm(hidden, eps=eps), s_msa, sc_msa)
         q, k, v = dense(blk.qkv, ai).chunk(3, dim=-1)
         if cfg.qk_ln:
             q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
-        attn = attention(heads(q), heads(k), heads(v), impl=impl,
-                         rope=(rope.cos, rope.sin), rope_interleaved=cfg.interleaved_rope)
+        if isinstance(attn_pos, _StaLayout):
+            cos, sin = attn_pos.cos[:, None, :], attn_pos.sin[:, None, :]
+            q, k = (apply_rotary(heads(t), cos, sin, cfg.interleaved_rope) for t in (q, k))
+            attn = sta_attention(q, k, heads(v), pre_tiled=True, impl=impl, **attn_pos.kwargs)
+        else:
+            attn = attention(heads(q), heads(k), heads(v), impl=impl,
+                             rope=(attn_pos.cos, attn_pos.sin),
+                             rope_interleaved=cfg.interleaved_rope)
         hidden = hidden + g_msa * dense(blk.attn_out, attn.flatten(2))
 
         # dual cross attention, no AdaLN modulation or gate
@@ -352,6 +428,19 @@ class DiT(nn.Module):
         # MLP
         mi = modulate(layer_norm(hidden, eps=eps), s_mlp, sc_mlp)
         return hidden + g_mlp * dense(blk.mlp_out, gelu_tanh(dense(blk.mlp_in, mi)))
+
+
+@dataclasses.dataclass(frozen=True)
+class _StaLayout:
+    """The tile-major token layout of one geometry (ops/sta.py sta_plan):
+    the gather into it, the rows of the video tokens in it, the rope tables
+    permuted to it, and sta_attention's geometry arguments."""
+
+    order: torch.Tensor
+    video_rows: torch.Tensor
+    cos: torch.Tensor
+    sin: torch.Tensor
+    kwargs: dict
 
 
 def _patchify_tokens(x, proj, patch_size):

@@ -31,9 +31,12 @@ from scail_tpu_torch.ops.rotary import apply_rotary, rotate_half
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
-# kernel launches by wrapper (plain ints; reset with reset_launch_counts)
+# kernel launches by wrapper (plain ints; reset with reset_launch_counts); the
+# sliding-tile wrappers of ops/sta.py count here too
 LAUNCHES = {"flash_attention": 0, "flash_attention_rope": 0, "dual_cross_attention": 0,
-            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0}
+            "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
+            "sta_attention_fwd": 0, "sta_attention_fwd_lse": 0,
+            "sta_attention_bwd_dq": 0, "sta_attention_bwd_dkv": 0}
 
 
 def reset_launch_counts() -> None:

@@ -21,8 +21,9 @@ from pathlib import Path
 
 CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scail_tpu_torch"
-SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "dual_cross_attention.cu")
-HEADERS = ("mma_common.cuh",)
+SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "dual_cross_attention.cu",
+           "sta_attention.cu")
+HEADERS = ("mma_common.cuh", "flash_bwd_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -109,6 +110,13 @@ def lib() -> ctypes.CDLL:
             cdll.scail_flash_attention_bwd_dq.restype = _I
             cdll.scail_flash_attention_bwd_dkv.argtypes = [_P] * 8 + [_I] * 4 + [_L] * 18 + [_P]
             cdll.scail_flash_attention_bwd_dkv.restype = _I
+            cdll.scail_sta_attention_fwd.argtypes = [_P] * 6 + [_I] * 7 + [_L] * 12 + [_F, _P]
+            cdll.scail_sta_attention_fwd.restype = _I
+            cdll.scail_sta_attention_bwd_dq.argtypes = (
+                [_P] * 8 + [_I] * 7 + [_L] * 15 + [_F, _P])
+            cdll.scail_sta_attention_bwd_dq.restype = _I
+            cdll.scail_sta_attention_bwd_dkv.argtypes = [_P] * 10 + [_I] * 7 + [_L] * 18 + [_P]
+            cdll.scail_sta_attention_bwd_dkv.restype = _I
             BUILD_INFO.update(info)
             _LIB = cdll
         return _LIB

@@ -114,7 +114,9 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing(rng):
     assert torch.equal(dual, tattn.dual_cross_attention_plain(q, k, v, k[:, :7], v[:, :7]))
     assert tattn.LAUNCHES == {"flash_attention": 0, "flash_attention_rope": 0,
                               "dual_cross_attention": 0, "flash_attention_bwd_dq": 0,
-                              "flash_attention_bwd_dkv": 0}
+                              "flash_attention_bwd_dkv": 0, "sta_attention_fwd": 0,
+                              "sta_attention_fwd_lse": 0, "sta_attention_bwd_dq": 0,
+                              "sta_attention_bwd_dkv": 0}
 
 
 def test_error_limits_accept_bf16_rounding_and_reject_a_wrong_kv_walk():

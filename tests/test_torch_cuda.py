@@ -114,3 +114,72 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
         A.flash_attention(q, q, q)
     with pytest.raises(TypeError):
         A.flash_attention(q.float(), q.float(), q.float())
+
+
+# sliding-tile attention (K7, K8): (grid_thw, ref_len, pose_len, tile, window,
+# pose_kv_window, batch).  'ragged': kv blocks of 32 rows and pose q tiles of
+# 8, so 64-row chunks straddle tiles and blocks, and a short ref tail;
+# 'production_rows': ts 1344 and pose tiles of 336 rows, as at 48,832 tokens
+STA_CASES = {
+    "ragged": ((2, 8, 16), 100, 64, (1, 2), (1, 2), 3, 2),
+    "production_rows": ((3, 8, 56), 8, 336, (3, 8), (1, 1), 0, 1),
+}
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("case", list(STA_CASES))
+def test_sta_kernels_match_plain(cuda, case):
+    from scail_tpu_torch.ops import sta as S
+
+    grid, ref, pose, tile, window, pkw, b = STA_CASES[case]
+    plan = S.sta_plan(grid, ref, pose, tile, window, True, pkw)
+    tables = plan.tables("cuda")
+    s = ref + plan.video_len + pose
+    q, k, v, do = (_rnd(cuda, b, s, 2, 128) for _ in range(4))
+    sv = plan.video_len
+    for qc, ts_q in ((q[:, :sv], plan.ts), (q[:, sv:sv + pose], plan.ts // 4)):
+        dc = do[:, :qc.shape[1]]
+        before = dict(A.LAUNCHES)
+        out, lse = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q,
+                                      with_lse=True)
+        out2, none = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q)
+        got = S.sta_windowed_bwd(qc, k, v, out, lse, dc, tables, ts=plan.ts, ts_q=ts_q)
+        torch.cuda.synchronize()
+        for name in ("sta_attention_fwd", "sta_attention_fwd_lse", "sta_attention_bwd_dq",
+                     "sta_attention_bwd_dkv"):
+            assert A.LAUNCHES[name] == before[name] + 1, name
+        assert none is None and torch.equal(out, out2)
+        want, want_lse = S.sta_windowed_plain(qc.float(), k.float(), v.float(), tables.table,
+                                              ts=plan.ts, ts_q=ts_q)
+        _assert_close(out, want)
+        _assert_close(lse, want_lse, lse=True)
+        # the backward's plain version on the kernels' bf16 inputs: its
+        # rounding points (dS and P in bf16; with f32 inputs they are not
+        # rounded, and a pose call's dk/dv, whose ref rows take every q tile,
+        # spans too wide a range for error_vs_plain's scale)
+        plain = S.sta_windowed_bwd_plain(qc, k, v, out, lse, dc, tables, ts=plan.ts, ts_q=ts_q)
+        for g, w in zip(got, plain):
+            _assert_close(g, w)
+        again = S.sta_windowed_bwd(qc, k, v, out, lse, dc, tables, ts=plan.ts, ts_q=ts_q)
+        assert all(torch.equal(x, y) for x, y in zip(got, again))  # no atomics
+
+
+@pytest.mark.cuda
+def test_sta_attention_gradients_on_the_card_match_the_plain_path(cuda):
+    """sta_attention through its autograd Functions on the card (K7 + K2
+    forward, K8 + K5 backward) against the same calls on CPU copies of the
+    same bf16 inputs, where they run the plain versions."""
+    from scail_tpu_torch.ops import sta as S
+
+    grid, ref, pose, tile, window, pkw, _ = STA_CASES["ragged"]
+    kw = dict(grid_thw=grid, ref_len=ref, pose_len=pose, tile=tile, window=window,
+              windowed_pose=True, pose_kv_window=pkw)
+    s = ref + grid[0] * grid[1] * grid[2] + pose
+    q, k, v, w = (_rnd(cuda, 1, s, 2, 128) for _ in range(4))
+    grads = []
+    for device in ("cuda", "cpu"):
+        ts = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        (S.sta_attention(*ts, **kw).float() * w.to(device).float()).sum().backward()
+        grads.append([t.grad for t in ts])
+    for g, want in zip(*grads):
+        _assert_close(g, want.to(g.device))

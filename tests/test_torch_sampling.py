@@ -51,9 +51,10 @@ DENOISER = dict(
     scaling_config={"target": "sgm.modules.diffusionmodules.denoiser_scaling.RFScaling"})
 
 
-def _dense_fingerprint_inputs():
-    """The tiny `dense` geometry of scripts/fingerprints.py, built with the same
-    JAX keys: weights, conditioning and the starting latent, as numpy."""
+def _fingerprint_inputs(**cfg_kw):
+    """The tiny geometry of scripts/fingerprints.py, built with the same JAX
+    keys: weights, conditioning and the starting latent, as numpy, and the
+    port's DiTConfig (cfg_kw: the path's attention options)."""
     kw = dict(hidden_size=64, num_layers=2, num_heads=2, inner_hidden_size=128,
               time_embed_dim=64, text_dim=32, clip_dim=16, share_adaln=True,
               use_i2v_clip=True, dtype="float32")
@@ -70,14 +71,17 @@ def _dense_fingerprint_inputs():
     }
     x0 = jax.random.normal(jax.random.PRNGKey(7), (1, T, 16, H, W), jnp.float32)
     to_np = lambda t: np.array(t)  # noqa: E731  (writable copies for torch)
-    return (jax.tree.map(to_np, params), DiTConfig(**kw),
+    return (jax.tree.map(to_np, params), DiTConfig(**kw, **cfg_kw),
             {k: to_np(v) for k, v in cond.items()}, to_np(x0))
 
 
-def test_port_reproduces_dense_cpu_fingerprint():
+def port_fingerprint(name, **cfg_kw):
+    """Run the port's RFSampler + Denoiser + VanillaCFG + DiT for the 4 steps
+    of the CPU fingerprint `name` and hold it against the committed golden at
+    rtol 1e-4 (scripts/fingerprints.py's own `compare`)."""
     import fingerprints as fp
 
-    params, cfg, cond_np, x0 = _dense_fingerprint_inputs()
+    params, cfg, cond_np, x0 = _fingerprint_inputs(**cfg_kw)
     model = DiT(cfg)
     model.load_state_dict(dit_state_dict_from_jax(params, cfg))
     sampler = instantiate_from_config(
@@ -108,14 +112,18 @@ def test_port_reproduces_dense_cpu_fingerprint():
             norms.append(round(float(np.linalg.norm(xa)), 4))
             deltas.append(round(float(np.linalg.norm(xa - prev)), 5))
             prev = xa
-    got = {"dense": {"step_norms": norms, "delta_norms": deltas,
-                     "final_mean": round(float(xa.mean()), 6),
-                     "final_std": round(float(xa.std()), 6),
-                     "final_hash": hashlib.sha256(xa.tobytes()).hexdigest()[:16]}}
+    got = {name: {"step_norms": norms, "delta_norms": deltas,
+                  "final_mean": round(float(xa.mean()), 6),
+                  "final_std": round(float(xa.std()), 6),
+                  "final_hash": hashlib.sha256(xa.tobytes()).hexdigest()[:16]}}
     with open(os.path.join(fp.GOLDENS_DIR, "fingerprints_cpu.json")) as f:
-        want = {"dense": json.load(f)["fingerprints"]["dense"]}
+        want = {name: json.load(f)["fingerprints"][name]}
     hard, msgs = fp.compare(got, want, rtol=1e-4)
     assert not hard, "\n".join(msgs)
+
+
+def test_port_reproduces_dense_cpu_fingerprint():
+    port_fingerprint("dense")
 
 
 def _tiny_cli_yaml(tmp_path):
@@ -218,6 +226,10 @@ def test_profiler_groups_kernels_and_needs_cuda(tmp_path):
     from scail_tpu_torch.cli import profile
 
     names = {"void scail::flash_fwd_kernel<1>(__nv_bfloat16 const*": "flash_attention",
+             "void scail::flash_fwd_kernel<0>(__nv_bfloat16 const*": "flash_attention_norope",
+             "void scail::flash_bwd_dkv_kernel(__nv_bfloat16 const": "flash_attention_bwd",
+             "void scail::sta_fwd_kernel<true>(__nv_bfloat16 const": "sta_attention",
+             "void scail::sta_bwd_dq_kernel(__nv_bfloat16 const*,": "sta_attention_bwd",
              "scail::dual_cross_kernel(__nv_bfloat16 const*, __nv_": "dual_cross_attention",
              "sm80_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_n": "conv",
              "nvjet_tst_192x192_64x4_1x2_h_bz_coopB_bias_TNN": "gemm",

@@ -524,5 +524,8 @@ def test_profiler_groups_the_backward_kernels_and_has_a_training_phase():
         "flash_attention_bwd"
     assert profile._group("void scail::flash_bwd_dkv_kernel(__nv_bfloat16 const*") == \
         "flash_attention_bwd"
+    # K1 (the rope instantiations) keeps its group; K2 (none) has its own
     assert profile._group("void scail::flash_fwd_kernel<1>(__nv_bfloat16") == "flash_attention"
-    assert profile.PHASES[-1] == "train_step"
+    assert profile._group("void scail::flash_fwd_kernel<0>(__nv_bfloat16") == \
+        "flash_attention_norope"
+    assert {"train_step", "train_step_sta"} <= set(profile.PHASES)
