@@ -37,14 +37,32 @@ Phases (any failure exits non-zero; no exception is swallowed):
   6b. train STA -- 2 steps at full width and depth from a YAML with
                  `attn_impl: sta` (exact K7/K8/K2/K3/K5 launches), gradients
                  kernel vs plain path.
+  7. DiT 14B W8A16 -- the 14B DiT from configs/video_model/scail_14b.yaml
+                 (hidden 5120, 40 layers, 40 heads, MLP 13,824) with random
+                 int8 layer linears (cli/bench_14b_quant.py), one forward at
+                 CFG batch 2, 48,832 tokens: exactly 320 K4 (w8) + 40 K1 + 40
+                 K3, a finite output, parameter and peak GB; kernel path vs
+                 plain path (plain attention and plain W8A16) on a small input.
+  7b. 14B W4A16 clip -- `python -m scail_tpu_torch.cli.bench_14b_e2e --bits 4
+                 --steps 2` through main(argv): 2 steps x 2 CFG halves at batch
+                 1 (exactly 1,280 K4 (w4) + 160 K1 + 160 K3), then the streamed
+                 decode of 81 finite frames.
+  8. CLI 14B int8 -- the sampling CLI with the 14B YAML, bf16 weights and
+                 --attn-impl pallas_int8 on the 81-frame request, 2 steps:
+                 exactly 80 K6 + 80 K3 and no K1, an .mp4 of 81 x 512 x 896
+                 frames, per-phase seconds and peak GB; then a bf16 14B DiT
+                 built one parameter at a time (its build peak is checked to
+                 hold no f32 copy) and its int8 kernel path vs its plain path on
+                 a small input.
 
 The line before the last is {"kernels": [...]}: per kernel its launches on the
-main paths (`launches_by_path`: the sampling CLI of phases 5 and 5b and the
-train CLI of phases 6 and 6b, each counted from 0, and their sum), its
-largest error against the plain version, the kernel's,
-the plain version's and the library call's milliseconds at the main-path shape,
-and the bound: the larger of bytes moved over 3.35 TB/s and FLOPs over
-989 TFLOP/s (H100 SXM bf16 dense).  The last line is {"ok": true, "device": ...}.
+main paths (`launches_by_path`: the sampling CLI of phases 5 and 5b, the
+train CLI of phases 6 and 6b and the 14B paths of phases 7, 7b and 8, each
+counted from 0, and their sum), its largest error against the plain version,
+the kernel's, the plain version's and the library call's milliseconds at the
+main-path shape, and the bound: the larger of bytes moved over 3.35 TB/s and
+the operations over the tensor cores' dense rates (989 TFLOP/s bf16, 1,979
+TOP/s int8; H100 SXM).  The last line is {"ok": true, "device": ...}.
 """
 
 import json
@@ -60,9 +78,10 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 DIT_REL_TOL = 3e-2
 # the same for the DiT's parameter gradients through the training loss
 GRAD_REL_TOL = 5e-2
-# H100 SXM: HBM bytes/s and bf16 dense tensor-core FLOP/s (NVIDIA data sheet)
+# H100 SXM: HBM bytes/s and bf16 / int8 dense tensor-core rates (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
+INT8_OPS = 1979e12
 
 
 def log(msg):
@@ -89,10 +108,12 @@ def timed_ms(fn, iters=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, moved):
+def bound(flops, moved, int8_ops=0):
     """(ms, 'operations' | 'bytes'): the least time the card needs to do
-    `flops` bf16 operations and move `moved` bytes."""
-    t_ops, t_bytes = flops / BF16_FLOPS * 1e3, moved / HBM_BYTES_PER_S * 1e3
+    `flops` bf16 and `int8_ops` int8 tensor-core operations and move `moved`
+    bytes."""
+    t_ops = (flops / BF16_FLOPS + int8_ops / INT8_OPS) * 1e3
+    t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
 
@@ -124,6 +145,23 @@ def compare(name, got, want, lse=False, key=None):
     if not e["ok"]:
         fail(f"{name} disagrees with its plain version")
     return e["max_abs_err"]
+
+
+def reset_counts():
+    """Every kernel's launch count to 0 (attention and quantized matmul)."""
+    from scail_tpu_torch.ops import attention as A
+    from scail_tpu_torch.ops import quant as Q
+
+    A.reset_launch_counts()
+    Q.reset_launch_counts()
+
+
+def launch_counts():
+    """Every kernel's launch count since reset_counts()."""
+    from scail_tpu_torch.ops import attention as A
+    from scail_tpu_torch.ops import quant as Q
+
+    return {**A.LAUNCHES, **Q.LAUNCHES}
 
 
 def phase_device():
@@ -266,7 +304,140 @@ def phase_kernels():
     for g in ("dq", "dkv"):
         results[f"flash_attention_bwd_{g}"]["sta_ref_rows"] = sta.pop(f"flash_attention_bwd_{g}")
     results.update(sta)
+    results.update(_quant_kernels(gen))
+    results["flash_attention_int8"] = _int8_kernel(gen, rnd)
     return results
+
+
+# K4 at the 14B's main-path shapes, CFG batch 2 (M = 2 x 48,832 video-stream
+# rows, 2 x 512 text rows): (name, M, K, N); the first is the headline entry
+QUANT_SHAPES = (("qkv", 97664, 5120, 15360), ("mlp_in", 97664, 5120, 13824),
+                ("mlp_out", 97664, 13824, 5120), ("attn_out", 97664, 5120, 5120),
+                ("cross_kv", 1024, 5120, 10240))
+
+
+def _rows_view(t):
+    """A (M, N) matmul output as error_vs_plain's (1, M, 1, N)."""
+    return t.reshape(1, -1, 1, t.shape[-1])
+
+
+def _random_codes(gen, n, k, bits):
+    import torch
+
+    if bits == 8:
+        return torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    return torch.randint(0, 256, (n, k // 2), generator=gen, device="cuda", dtype=torch.uint8)
+
+
+def _dequantize(codes, scale, bits):
+    """The bf16 weight the codes stand for (the library yardstick's operand)."""
+    import torch
+
+    from scail_tpu_torch.ops import quant as Q
+
+    c = codes if bits == 8 else Q.unpack_int4(codes)
+    return c.to(torch.bfloat16) * scale.to(torch.bfloat16)[:, None]
+
+
+def _quant_kernels(gen):
+    """K4, W8A16 and W4A16, against the plain version: a ragged small case
+    (M 300, N 201, K 160, with a bias; every int4 byte, so -8 nibbles), then
+    each 14B main-path shape of QUANT_SHAPES with a bias, rows [0, 1024) and
+    the last 1024 compared; times of kernel, plain version and torch.matmul
+    on the dequantized bf16 weight (cuBLAS), beside the bound: 2MNK FLOPs
+    over 989 TFLOP/s against x, codes, scale, bias and output bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.ops import quant as Q
+
+    def rnd(*shape):
+        return torch.randn(*shape, generator=gen, device="cuda").to(torch.bfloat16)
+
+    results = {}
+    for bits in (8, 4):
+        key = f"w{bits}a16_matmul"
+        mm = Q.matmul_w8a16 if bits == 8 else Q.matmul_w4a16
+        x, codes = rnd(300, 160), _random_codes(gen, 201, 160, bits)
+        scale, bias = torch.full((201,), 0.02 / 127, device="cuda"), rnd(201)
+        compare(f"{key} small (300,160)x(160,201)", _rows_view(mm(x, codes, scale, bias)),
+                _rows_view(mm(x, codes, scale, bias, impl="xla")), key=key)
+        by_shape = {}
+        for name, m, k, n in QUANT_SHAPES:
+            x = rnd(m, k)
+            codes = _random_codes(gen, n, k, bits)
+            scale = torch.full((n,), 0.02 / (127 if bits == 8 else 7), device="cuda")
+            bias = rnd(n)
+            out = mm(x, codes, scale, bias)
+            torch.cuda.synchronize()
+            err = 0.0
+            for sl in (slice(0, 1024), slice(m - 1024, m)):
+                err = max(err, compare(
+                    f"{key} {name} ({m},{k})x({k},{n}) rows [{sl.start},{sl.stop})",
+                    _rows_view(out[sl]), _rows_view(mm(x[sl], codes, scale, bias, impl="xla")),
+                    key=key))
+            ms = timed_ms(lambda: mm(x, codes, scale, bias))
+            plain_ms = timed_ms(lambda: mm(x, codes, scale, bias, impl="xla"), iters=1)
+            w = _dequantize(codes, scale, bits)
+            library_ms = timed_ms(lambda: F.linear(x, w, bias))
+            flops = 2 * m * n * k
+            b_ms, b_by = bound(flops, nbytes(x, codes, scale, bias, out))
+            log(f"{key} {name} ({m},{k})x({k},{n}): kernel {ms:.3f} ms "
+                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, torch.matmul on "
+                f"the dequantized bf16 weight {library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
+            by_shape[name] = dict(shape=[m, k, n], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                                  bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+            del x, codes, out, w
+            torch.cuda.empty_cache()
+        results[key] = dict(by_shape["qkv"], by_shape=by_shape,
+                            max_abs_err=max(e["max_abs_err"] for e in by_shape.values()))
+    return results
+
+
+def _int8_kernel(gen, rnd):
+    """K6 against its plain version on the same bf16 inputs: a ragged small
+    case (q 150, kv 176 rows, v head-strided), then the 14B's self-attention
+    shape (2, 48,832, 40, 128), q rows [0, 1024) and the last 1024 against
+    every kv row; times of kernel, plain version and SDPA on the bf16 q, k,
+    v (exact attention, the library yardstick).  Bound: QK^T's 2 S^2 d ops per
+    head at the int8 rate plus P V's at the bf16 rate, against q, k, v, O,
+    LSE bytes."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.ops import attention as A
+
+    q, k = rnd(2, 150, 2, 128), rnd(2, 176, 2, 128)
+    v = rnd(2, 176, 2, 3 * 128)[..., 128:256]
+    o, lse = A.flash_attention_int8(q, k, v)
+    po, plse = A.flash_attention_int8_plain(q, k, v)
+    compare("flash int8 small (2,150,2,128)x176 out", o, po, key="flash_attention_int8")
+    compare("flash int8 small lse", lse, plse, lse=True)
+
+    S, H = 48832, 40
+    q, k, v = (rnd(2, S, H, 128) for _ in range(3))
+    o, lse = A.flash_attention_int8(q, k, v)
+    torch.cuda.synchronize()
+    err = 0.0
+    for sl in (slice(0, 1024), slice(S - 1024, S)):
+        po, plse = A.flash_attention_int8_plain(q[:, sl], k, v, block_q=128)
+        tag = f"flash int8 (2,{S},{H},128) rows [{sl.start},{sl.stop})"
+        err = max(err, compare(f"{tag} out", o[:, sl], po, key="flash_attention_int8"))
+        compare(f"{tag} lse", lse[:, :, sl], plse, lse=True)
+        del po, plse
+    ms = timed_ms(lambda: A.flash_attention_int8(q, k, v), iters=2)
+    plain_ms = timed_ms(lambda: A.flash_attention_int8_plain(q, k, v, block_q=128), iters=1)
+    library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), iters=2)
+    ops = 2 * 2 * H * S * S * 128  # each of QK^T (int8) and P V (bf16)
+    b_ms, b_by = bound(ops, nbytes(q, k, v, o, lse), int8_ops=ops)
+    log(f"flash int8 (2,{S},{H},128): kernel {ms:.3f} ms ({2 * ops / ms / 1e9:.1f} TOP/s), "
+        f"plain {plain_ms:.3f} ms, SDPA (bf16, exact) {library_ms:.3f} ms, bound {b_ms:.3f} ms "
+        f"({b_by})")
+    del q, k, v, o, lse
+    torch.cuda.empty_cache()
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=library_ms)
 
 
 def _backward_kernels(gen, rnd, f32):
@@ -680,7 +851,6 @@ def phase_dit():
 
     import torch
 
-    from scail_tpu_torch.ops import attention as A
 
     dit = _build_dit()
     cfg = dit.config
@@ -692,12 +862,12 @@ def phase_dit():
     with torch.inference_mode():
         dit(x, t, ctx, **inp)  # warm-up
         torch.cuda.synchronize()
-        A.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = dit(x, t, ctx, **inp)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3
-    counts = dict(A.LAUNCHES)
+    counts = launch_counts()
     log(f"DiT 1.3B forward, CFG batch 2, 48,832 tokens: {fwd_ms:.1f} ms; launches {counts}")
     if counts["flash_attention_rope"] != 30 or counts["dual_cross_attention"] != 30:
         fail(f"expected 30 + 30 kernel launches per forward, got {counts}")
@@ -730,7 +900,6 @@ def phase_cli():
 
     from scail_tpu_torch.cli import sample_video
     from scail_tpu_torch.data.video import load_video_frames
-    from scail_tpu_torch.ops import attention as A
 
     os.makedirs(WORK, exist_ok=True)
     ex81 = os.path.join(WORK, "synthetic_081")
@@ -745,11 +914,11 @@ def phase_cli():
             "--input-type", "txt", "--input-file", prompts, "--sampling-steps", "2",
             "--device", "cuda", "--output-dir", os.path.join(WORK, "samples")]
     log("CLI: python -m scail_tpu_torch.cli.sample_video " + " ".join(argv))
-    A.reset_launch_counts()
+    reset_counts()
     t0 = time.perf_counter()
     records = sample_video.main(argv)
     total = time.perf_counter() - t0
-    counts = dict(A.LAUNCHES)
+    counts = launch_counts()
     log(f"CLI answered {len(records)} requests in {total:.1f} s; kernel launches {counts}")
     if len(records) != 2:
         fail(f"expected 2 answered requests, got {len(records)}")
@@ -789,7 +958,6 @@ def _train(argv, want_per_step, label):
     import torch
 
     from scail_tpu_torch.cli import train
-    from scail_tpu_torch.ops import attention as A
     from scail_tpu_torch.training.engine import Trainer
 
     watched = ("layers.0.qkv.weight", "layers.29.mlp_out.weight", "final_layer.linear.weight",
@@ -815,12 +983,12 @@ def _train(argv, want_per_step, label):
         full = argv + ["--train-iters", "2"]
         log(f"{label}: python -m scail_tpu_torch.cli.train " + " ".join(full))
         torch.cuda.reset_peak_memory_stats()
-        A.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         trainer = train.main(full)
         torch.cuda.synchronize()
         total = time.perf_counter() - t0
-        counts = dict(A.LAUNCHES)
+        counts = launch_counts()
     finally:
         Trainer.fit, Trainer.train_step = real_fit, real_step
     step_s = seen["step_s"]
@@ -971,7 +1139,6 @@ def phase_dit_sta():
 
     import torch
 
-    from scail_tpu_torch.ops import attention as A
 
     dit = _build_dit(attn_impl="sta")
     cfg = dit.config
@@ -982,12 +1149,12 @@ def phase_dit_sta():
     with torch.inference_mode():
         dit(x, t, ctx, **inp)  # warm-up
         torch.cuda.synchronize()
-        A.reset_launch_counts()
+        reset_counts()
         t0 = time.perf_counter()
         out = dit(x, t, ctx, **inp)
         torch.cuda.synchronize()
         fwd_ms = (time.perf_counter() - t0) * 1e3
-    counts = dict(A.LAUNCHES)
+    counts = launch_counts()
     log(f"STA DiT 1.3B forward, CFG batch 2, 48,832 tokens: {fwd_ms:.1f} ms; launches {counts}")
     _exact(counts, STA_DIT_LAUNCHES, "one STA DiT forward")
     if tuple(out.shape) != (2, 21, 16, 64, 112) or not torch.isfinite(out).all():
@@ -999,9 +1166,9 @@ def phase_dit_sta():
     xs, ts = small.pop("x"), small.pop("timesteps")
     ctx = small.pop("context")
     with torch.inference_mode():
-        A.reset_launch_counts()
+        reset_counts()
         got = dit(xs, ts, ctx, **small).float()
-        _exact(dict(A.LAUNCHES), STA_DIT_LAUNCHES, "STA DiT forward on the small input")
+        _exact(launch_counts(), STA_DIT_LAUNCHES, "STA DiT forward on the small input")
         dit.config = dataclasses.replace(cfg, sta_impl="xla")
         want = dit(xs, ts, ctx, **small).float()
         dit.config = cfg
@@ -1022,7 +1189,6 @@ def phase_cli_sta(ex81):
 
     from scail_tpu_torch.cli import sample_video
     from scail_tpu_torch.data.video import load_video_frames
-    from scail_tpu_torch.ops import attention as A
 
     prompts = os.path.join(WORK, "prompts_sta.txt")
     with open(prompts, "w") as f:
@@ -1033,9 +1199,9 @@ def phase_cli_sta(ex81):
             "--attn-impl", "sta", "--device", "cuda",
             "--output-dir", os.path.join(WORK, "samples_sta")]
     log("CLI STA: python -m scail_tpu_torch.cli.sample_video " + " ".join(argv))
-    A.reset_launch_counts()
+    reset_counts()
     records = sample_video.main(argv)
-    counts = dict(A.LAUNCHES)
+    counts = launch_counts()
     rec = records[0]
     out = rec["outputs"][0]
     decoded = load_video_frames(out)[0]
@@ -1075,6 +1241,199 @@ def phase_train_sta(ex81):
     return counts, stats
 
 
+# the 14B paths' launches: one forward runs 8 quantized linears (qkv,
+# attn_out, cross_q, cross_kv, clip_kv, cross_out, mlp_in, mlp_out), one
+# self-attention and one dual cross-attention in each of 40 layers
+DIT14B_W8_LAUNCHES = {"w8a16_matmul": 320, "flash_attention_rope": 40, "dual_cross_attention": 40}
+E2E14B_W4_LAUNCHES = {"w4a16_matmul": 1280, "flash_attention_rope": 160,
+                      "dual_cross_attention": 160}  # 2 steps x 2 CFG halves
+CLI14B_INT8_LAUNCHES = {"flash_attention_int8": 80, "dual_cross_attention": 80}  # 2 steps
+DIT14B_WIDTHS = (5120, 40, 40, 13824)
+# a small latent (T, H, W) for the 14B kernel-vs-plain checks: 304 tokens
+SMALL_14B = (3, 16, 16)
+
+
+def _config_14b(**params):
+    """The DiTConfig of configs/video_model/scail_14b.yaml, bf16, with CLIP."""
+    import yaml
+
+    from scail_tpu_torch.utils.registry import instantiate_from_config
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_14b.yaml")) as f:
+        nc = yaml.safe_load(f)["model"]["network_config"]
+    nc["params"].update(dtype="bf16", use_i2v_clip=True, **params)
+    cfg = instantiate_from_config(nc).config
+    got = (cfg.hidden_size, cfg.num_layers, cfg.num_heads, cfg.inner_hidden_size)
+    if got != DIT14B_WIDTHS:
+        fail(f"the 14B YAML gives widths {got}, expected {DIT14B_WIDTHS}")
+    return cfg
+
+
+def _plain_path_check(dit, plain_fields, label):
+    """Relative L2 distance of the DiT's kernel path from its plain path
+    (config fields `plain_fields`) with the same weights, CFG batch 2 at
+    SMALL_14B; fails past DIT_REL_TOL."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.cli.bench_14b_quant import dit_inputs, run_dit
+
+    cfg = dit.config
+    small = dit_inputs(cfg, 2, torch.device("cuda"), torch.Generator(device="cuda").manual_seed(3),
+                       latent=SMALL_14B)
+    with torch.inference_mode():
+        got = run_dit(dit, small).float()
+        dit.config = dataclasses.replace(cfg, **plain_fields)
+        want = run_dit(dit, small).float()
+        dit.config = cfg
+    rel = ((got - want).norm() / want.norm()).item()
+    log(f"{label}: kernel path vs plain path {plain_fields} (2, {SMALL_14B[0]}, 16, "
+        f"{SMALL_14B[1]}, {SMALL_14B[2]}): relative L2 {rel:.3e} (tol {DIT_REL_TOL})")
+    if not rel < DIT_REL_TOL:
+        fail(f"{label}: the kernel path disagrees with the plain path")
+    return rel
+
+
+def phase_dit14b_w8():
+    """The 14B DiT with random W8A16 layer linears (bench_14b_quant's
+    build_random_quant_params), all 40 layers: one forward at CFG batch 2,
+    48,832 tokens, exact launches, finite output, parameter and peak GB; then
+    the kernel path against the plain path (plain attention, plain W8A16)."""
+    import gc
+
+    import torch
+
+    from scail_tpu_torch.cli.bench_14b_quant import (build_random_quant_params, dit_inputs,
+                                                     model_bytes, run_dit)
+
+    cfg = _config_14b()
+    torch.cuda.reset_peak_memory_stats()
+    gen = torch.Generator(device="cuda").manual_seed(6)
+    dit = build_random_quant_params(cfg, 8, torch.device("cuda"), gen)
+    param_gb = model_bytes(dit) / 1e9
+    inp = dit_inputs(cfg, 2, torch.device("cuda"), gen)
+    with torch.inference_mode():
+        torch.cuda.synchronize()
+        reset_counts()
+        t0 = time.perf_counter()
+        out = run_dit(dit, inp)
+        torch.cuda.synchronize()
+        fwd_ms = (time.perf_counter() - t0) * 1e3
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    log(f"DiT 14B W8A16 forward, CFG batch 2, 48,832 tokens: {fwd_ms:.1f} ms; parameters "
+        f"{param_gb:.2f} GB, peak allocated {peak_gb:.2f} GB; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    _exact(counts, DIT14B_W8_LAUNCHES, "one 14B W8A16 forward")
+    if tuple(out.shape) != (2, 21, 16, 64, 112) or not torch.isfinite(out).all():
+        fail(f"14B W8A16 output bad: shape {tuple(out.shape)}, finite "
+             f"{bool(torch.isfinite(out).all())}")
+    del out, inp
+    rel = _plain_path_check(dit, {"attn_impl": "xla", "quant_impl": "xla"}, "DiT 14B W8A16")
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(fwd_ms=fwd_ms, param_gb=param_gb, peak_gb=peak_gb, rel=rel)
+
+
+def phase_e2e_14b_w4():
+    """`python -m scail_tpu_torch.cli.bench_14b_e2e --bits 4 --steps 2` through
+    main(argv): exact launches, 81 finite decoded frames."""
+    import gc
+
+    import torch
+
+    from scail_tpu_torch.cli import bench_14b_e2e
+
+    argv = ["--bits", "4", "--steps", "2"]
+    log("14B W4A16 clip: python -m scail_tpu_torch.cli.bench_14b_e2e " + " ".join(argv))
+    reset_counts()
+    t0 = time.perf_counter()
+    rec = bench_14b_e2e.main(argv)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    log(f"14B W4A16 clip: {total:.1f} s in all; launches "
+        f"{ {k: v for k, v in counts.items() if v} }")
+    _exact(counts, E2E14B_W4_LAUNCHES, "the 14B W4A16 clip, 2 steps")
+    if rec.get("decoded_shape") != [1, 81, 3, 512, 896] or not rec.get("decoded_finite") \
+            or not rec["latent_finite"]:
+        fail(f"14B W4A16 clip: expected 81 finite 512x896 frames, got {rec}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(rec, total_s=total)
+
+
+def phase_cli_14b_int8(ex81):
+    """The sampling CLI with the 14B YAML, bf16 weights and --attn-impl
+    pallas_int8: the 81-frame request, 2 steps, exact launches, the .mp4's
+    frames, per-phase seconds and peak GB.  Then a bf16 14B DiT built on the
+    meta device one parameter at a time (as the engine builds it): its build
+    peak must stay within 1 GB of its bf16 parameters (no whole f32 copy),
+    and its int8 kernel path is held against its plain path."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from scail_tpu_torch.cli import sample_video
+    from scail_tpu_torch.data.video import load_video_frames
+    from scail_tpu_torch.models.dit import DiT
+
+    prompts = os.path.join(WORK, "prompts_14b.txt")
+    with open(prompts, "w") as f:
+        f.write(f"a character dancing@@{ex81}\n")
+    argv = ["--base", os.path.join(ROOT, "configs", "video_model", "scail_14b.yaml"),
+            os.path.join(ROOT, "configs", "sampling", "pose_cli.yaml"),
+            "--input-type", "txt", "--input-file", prompts, "--sampling-steps", "2",
+            "--attn-impl", "pallas_int8", "--device", "cuda",
+            "--output-dir", os.path.join(WORK, "samples_14b_int8")]
+    log("CLI 14B int8: python -m scail_tpu_torch.cli.sample_video " + " ".join(argv))
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    records = sample_video.main(argv)
+    total = time.perf_counter() - t0
+    counts = launch_counts()
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = records[0]
+    out = rec["outputs"][0]
+    decoded = load_video_frames(out)[0]
+    log(f"CLI 14B int8 answered {len(records)} request in {rec['seconds']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rec["phases"].items())
+        + f"; {total:.1f} s with the engine build); {os.path.relpath(out, ROOT)} decodes to "
+        f"{decoded.shape} (mean {decoded.mean():.1f}), samples finite {rec['finite']}; peak "
+        f"allocated {peak_gb:.2f} GB; launches {  {k: v for k, v in counts.items() if v} }")
+    _exact(counts, CLI14B_INT8_LAUNCHES, "the 14B int8 CLI, 2 steps")
+    if len(records) != 1 or not (rec["finite"] and out.endswith(".mp4")
+                                 and decoded.shape == (81, 512, 896, 3) and np.ptp(decoded) > 0):
+        fail("14B int8 request: expected one .mp4 of 81 finite, non-constant 512x896 frames")
+    del records
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    cfg = _config_14b(attn_impl="pallas_int8")
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    dit = DiT(cfg, device="meta")
+    dit.init_weights_(torch.Generator(device="cuda").manual_seed(7), device=torch.device("cuda"),
+                      dtype=cfg.compute_dtype)
+    dit.eval()
+    param_gb = sum(p.numel() * p.element_size() for p in dit.parameters()) / 1e9
+    build_gb = (torch.cuda.max_memory_allocated() - base) / 1e9
+    log(f"bf16 14B DiT built one parameter at a time: parameters {param_gb:.2f} GB, build "
+        f"peak {build_gb:.2f} GB above what was allocated before (an f32 copy would add "
+        f"{2 * param_gb:.1f} GB)")
+    if not build_gb < param_gb + 1.0:
+        fail("building the bf16 14B DiT held more than its parameters and one f32 parameter")
+    rel = _plain_path_check(dit, {"quant_impl": "xla"}, "DiT 14B int8 attention")
+    del dit
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(rec, total_s=total, peak_gb=peak_gb, param_gb=param_gb,
+                        build_gb=build_gb, rel=rel)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -1091,6 +1450,9 @@ def main():
     sta_sample_counts, sta_record = phase_cli_sta(ex81)
     train_counts, train = phase_train(ex81)
     sta_train_counts, sta_train = phase_train_sta(ex81)
+    w8_counts, w8 = phase_dit14b_w8()
+    w4_counts, w4 = phase_e2e_14b_w4()
+    int8_counts, int8 = phase_cli_14b_int8(ex81)
 
     import torch
 
@@ -1100,10 +1462,15 @@ def main():
         + f", with STA {sta_record['case']} {sta_record['seconds']:.2f} s; training steps "
         f"{[round(x, 2) for x in train['step_s']]} s, peak {train['peak_gb']:.2f} GB, with STA "
         f"{[round(x, 2) for x in sta_train['step_s']]} s, peak {sta_train['peak_gb']:.2f} GB; "
+        f"14B W8A16 forward {w8['fwd_ms']:.1f} ms ({w8['param_gb']:.2f} GB of parameters, "
+        f"peak {w8['peak_gb']:.2f} GB); 14B W4A16 clip step {w4['step_s']} s, decode "
+        f"{w4.get('vae_decode_s')} s ({w4['param_gb']} GB of parameters, peak {w4['peak_gb']} "
+        f"GB); 14B int8 request {int8['seconds']:.2f} s, peak {int8['peak_gb']:.2f} GB; "
         f"whole run {time.perf_counter() - t_start:.0f} s; card {card}")
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
-             "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts}
+             "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
+             "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1125,6 +1492,10 @@ def main():
         entry("sta_attention_fwd_lse", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:159"),
         entry("sta_attention_bwd_dq", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:246"),
         entry("sta_attention_bwd_dkv", csrc + "sta_attention.cu", "scail_tpu/ops/sta.py:279"),
+        entry("w8a16_matmul", csrc + "w8a16_matmul.cu", "scail_tpu/ops/quant.py:65"),
+        entry("w4a16_matmul", csrc + "w8a16_matmul.cu", "scail_tpu/ops/quant.py:65"),
+        entry("flash_attention_int8", csrc + "flash_attention_int8.cu",
+              "scail_tpu/ops/attention.py:708"),
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

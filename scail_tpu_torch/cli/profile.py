@@ -15,13 +15,21 @@ CLI does without a checkpoint) and profiles, each after one warm-up call:
                   frames: the VAE encodes, CLIP, the remat DiT forward and
                   backward (f32 parameters, bf16 compute) and the clipped
                   EMA-Adam update;
-  * train_step_sta -- the same step with attn_impl='sta'.
+  * train_step_sta -- the same step with attn_impl='sta';
+  * dit14b_w4  -- one 14B DiT forward (hidden 5120, 40 layers) at CFG batch 2,
+                  48,832 tokens, with random W4A16 layer linears
+                  (bench_14b_quant.build_random_quant_params);
+  * dit14b_int8 -- one bf16 14B DiT forward at CFG batch 2 with
+                  attn_impl='pallas_int8' (int8-QK flash attention).
+The two 14B phases run first, each with its own model, before the 1.3B
+engine is built.
 
 Per phase: wall ms, device ms (the sum of kernel and memcpy/memset times that
 torch.profiler reads from CUPTI), device busy share (device ms / wall ms, one
 stream), peak allocated memory, and device ms by group (each attention
 kernel: K1 flash_attention, K2 flash_attention_norope, K5 flash_attention_bwd,
-K3 dual_cross_attention, K7 sta_attention, K8 sta_attention_bwd; GEMMs,
+K3 dual_cross_attention, K7 sta_attention, K8 sta_attention_bwd, K4
+w8a16_matmul (W8A16 and W4A16), K6 flash_attention_int8; GEMMs,
 convolutions, copies, the rest).  Prints one JSON line per phase and writes
 each phase's kernel table under --out.
 
@@ -40,10 +48,12 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PHASES = ("dit", "dit_sta", "vae_encode", "pose_encode", "vae_decode", "train_step",
-          "train_step_sta")
+          "train_step_sta", "dit14b_w4", "dit14b_int8")
 # kernel-name substrings by group, first match wins
 # (K1 keeps the name `flash_attention` it had before K2 was on a path)
-GROUPS = (("flash_attention_norope", ("flash_fwd_kernel<0>",)),
+GROUPS = (("w8a16_matmul", ("w8a16_kernel",)),
+          ("flash_attention_int8", ("flash_int8_kernel",)),
+          ("flash_attention_norope", ("flash_fwd_kernel<0>",)),
           ("flash_attention", ("flash_fwd_kernel",)),
           ("flash_attention_bwd", ("flash_bwd_",)),
           ("sta_attention", ("sta_fwd_kernel",)),
@@ -111,6 +121,14 @@ def main(argv=None):
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     os.makedirs(a.out, exist_ok=True)
+    card = torch.cuda.get_device_name(0)
+    for name in (n for n in ("dit14b_w4", "dit14b_int8") if n in a.phases):
+        with torch.inference_mode():
+            rec = profile_phase(name, _dit14b_call(name), a.out)
+        print(json.dumps(dict(rec, device=card)), flush=True)
+        torch.cuda.empty_cache()
+    if not set(a.phases) - {"dit14b_w4", "dit14b_int8"}:
+        return
 
     from scail_tpu_torch.cli.arguments import get_args
     from scail_tpu_torch.engine import VideoDiffusionEngine
@@ -146,7 +164,6 @@ def main(argv=None):
                                                                      force_encode=True)),
         "vae_decode": (dense_cfg, lambda: engine.decode_first_stage(z)),
     }
-    card = torch.cuda.get_device_name(0)
     for name in (n for n in PHASES if n in calls and n in a.phases):
         engine.dit.config, fn = calls[name]
         with torch.inference_mode():
@@ -161,6 +178,27 @@ def main(argv=None):
             rec = profile_phase(name, step, a.out)
             print(json.dumps(dict(rec, device=card)), flush=True)
     engine.dit.config = dense_cfg
+
+
+def _dit14b_call(name):
+    """One 14B DiT forward at CFG batch 2, 48,832 tokens: W4A16 layer
+    linears (dit14b_w4) or bf16 weights with int8-QK attention (dit14b_int8),
+    random weights from seed 0.  The model lives as long as the call."""
+    from scail_tpu_torch.cli.bench_14b_quant import (build_random_quant_params, dit_inputs,
+                                                     run_dit)
+    from scail_tpu_torch.models.dit import DiT, DiTConfig
+
+    gen = torch.Generator(device="cuda").manual_seed(0)
+    if name == "dit14b_w4":
+        cfg = DiTConfig(dtype="bfloat16")
+        dit = build_random_quant_params(cfg, 4, torch.device("cuda"), gen)
+    else:
+        cfg = DiTConfig(dtype="bfloat16", attn_impl="pallas_int8")
+        dit = DiT(cfg, device="meta")
+        dit.init_weights_(gen, device=torch.device("cuda"), dtype=cfg.compute_dtype)
+        dit.eval()
+    inp = dit_inputs(cfg, 2, torch.device("cuda"), gen)
+    return lambda: run_dit(dit, inp)
 
 
 def _train_step_call(engine, gen):

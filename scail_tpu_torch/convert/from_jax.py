@@ -3,8 +3,11 @@ arrays) -> the port's state_dicts, so both packages compute the same
 function in the parity tests.
 
 Rules: a pytree path a/b/kernel becomes a.b.weight with the (in, out)
-kernel transposed to nn.Linear's (out, in); every other leaf keeps its name
-and layout.  Stacked (L, ...) layer leaves are split into per-layer modules.
+kernel transposed to nn.Linear's (out, in); the quantized codes qweight
+(in, out) int8 and qweight4 (in/2, out) uint8 of ops/quant.py keep their
+names and dtypes and are transposed the same way, to the port's (out, in)
+and (out, in/2); every other leaf keeps its name and layout, floats in f32
+and integers in their own dtype.  Stacked (L, ...) layer leaves are split into per-layer modules.
 Convolution kernels move from channels-last to PyTorch's (out, in, *k).
 This module imports no jax: it takes numpy arrays (np.asarray each leaf).
 """
@@ -28,14 +31,15 @@ def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
 
 def _linear_leaf(path: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
     parts = path.split("/")
-    if parts[-1] == "kernel":
-        parts[-1] = "weight"
+    if parts[-1] in ("kernel", "qweight", "qweight4"):
+        parts[-1] = "weight" if parts[-1] == "kernel" else parts[-1]
         arr = np.swapaxes(arr, -1, -2)
     return ".".join(parts), arr
 
 
 def _tensor(arr: np.ndarray) -> torch.Tensor:
-    return torch.from_numpy(np.array(arr, dtype=np.float32, order="C", copy=True))
+    dtype = arr.dtype if arr.dtype.kind in "iub" else np.float32
+    return torch.from_numpy(np.array(arr, dtype=dtype, order="C", copy=True))
 
 
 def _stacked(params, leaf_fn, stack_key: str = "layers",

@@ -1,7 +1,8 @@
-// Building blocks shared by the hand-written attention kernels
-// (flash_attention.cu, dual_cross_attention.cu): bf16 tensor-core mma.sync
-// (m16n8k16, f32 accumulate), tile staging into padded shared memory, and
-// one online-softmax pass of a 64-row q tile over a key/value stream.
+// Building blocks shared by the hand-written kernels (the attention kernels
+// and w8a16_matmul.cu): bf16 tensor-core mma.sync (m16n8k16, f32
+// accumulate), tile staging into padded shared memory, and one online-softmax
+// pass of a 64-row q tile over a key/value stream (or one step of it, for a
+// kernel that computes its own scores).
 //
 // Tiling: one CTA = 4 warps = 64 q rows (16 per warp), head dim 128.  The q
 // tile lives in registers as mma A fragments for the whole KV walk; K and V
@@ -33,6 +34,13 @@ struct Strides {  // element strides of a (batch, seq, head, dim) tensor; dim is
 
 __device__ __forceinline__ float bf16_round(float x) {
   return __bfloat162float(__float2bfloat16_rn(x));
+}
+
+// Exact int32 -> f32 for |x| < 2^22: an integer add into the mantissa of
+// 1.5 * 2^23 and a float subtract, both full-rate, in place of the
+// quarter-rate I2F conversion.
+__device__ __forceinline__ float small_int_to_float(int x) {
+  return __int_as_float(0x4B400000 + x) - 12582912.0f;
 }
 
 // Two floats -> one register of two bf16; `lo` takes the lower address.
@@ -97,6 +105,72 @@ struct SoftmaxState {
   }
 };
 
+// Mask score columns at or past n_kv (only the last tile can hold rows past
+// n_kv, zero-filled) of a warp's 16 x 64 score block whose first column is kv0.
+__device__ __forceinline__ void mask_kv_tail(float (&s)[kSTiles][4], int kv0, int n_kv) {
+  if (kv0 + kBlockK <= n_kv) return;
+  const int t = threadIdx.x % 4;
+#pragma unroll
+  for (int j = 0; j < kSTiles; ++j) {
+    const int col = kv0 + j * 8 + 2 * t;
+    if (col >= n_kv) { s[j][0] = kNegInf; s[j][2] = kNegInf; }
+    if (col + 1 >= n_kv) { s[j][1] = kNegInf; s[j][3] = kNegInf; }
+  }
+}
+
+// One online-softmax step of a warp's 16 x 64 log2-domain score block
+// (rows g = lane/4 and g + 8: elements 0,1 and 2,3), then O += P V with P
+// rounded to bf16 straight from the score registers and V the staged tile.
+__device__ __forceinline__ void online_softmax_pv(float (&s)[kSTiles][4],
+                                                  const __nv_bfloat16* sV, SoftmaxState& st) {
+  const int lane = threadIdx.x % 32;
+  const int g = lane / 4;
+  const int t = lane % 4;
+  float alpha[2];
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_next = fmaxf(st.m[r], mx);
+    alpha[r] = exp2f(st.m[r] - m_next);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < kSTiles; ++j) {
+      s[j][2 * r] = exp2f(s[j][2 * r] - m_next);
+      s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_next);
+      sum += s[j][2 * r] + s[j][2 * r + 1];
+    }
+    st.l[r] = alpha[r] * st.l[r] + sum;
+    st.m[r] = m_next;
+  }
+#pragma unroll
+  for (int j = 0; j < kOTiles; ++j) {
+    st.acc[j][0] *= alpha[0];
+    st.acc[j][1] *= alpha[0];
+    st.acc[j][2] *= alpha[1];
+    st.acc[j][3] *= alpha[1];
+  }
+#pragma unroll
+  for (int kk = 0; kk < kBlockK / 16; ++kk) {
+    uint32_t pa[4];
+    pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
+    pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
+    pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
+    pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
+    const __nv_bfloat16* vr = sV + (kk * 16 + 2 * t) * kSmemStride + g;
+#pragma unroll
+    for (int j = 0; j < kOTiles; ++j) {
+      const __nv_bfloat16* vc = vr + j * 8;
+      const uint32_t b0 = pack_raw(vc[0], vc[kSmemStride]);
+      const uint32_t b1 = pack_raw(vc[8 * kSmemStride], vc[9 * kSmemStride]);
+      mma_16816(st.acc[j], pa, b0, b1);
+    }
+  }
+}
+
 // Walk one key/value stream [0, n_kv) in 64-row tiles for the q fragments
 // `qa` (pre-scaled by scale*log2e, so the softmax runs in exp2).  All 4 warps
 // of the CTA must call this together: it synchronises around the staging.
@@ -127,62 +201,8 @@ __device__ __forceinline__ void attend_stream(const uint32_t (&qa)[kQSteps][4],
         mma_16816(s[j], qa[kk], b0, b1);
       }
     }
-    // only the last tile can hold rows past n_kv (zero-filled): mask them
-    if (kv0 + kBlockK > n_kv) {
-#pragma unroll
-      for (int j = 0; j < kSTiles; ++j) {
-        const int col = kv0 + j * 8 + 2 * t;
-        if (col >= n_kv) { s[j][0] = kNegInf; s[j][2] = kNegInf; }
-        if (col + 1 >= n_kv) { s[j][1] = kNegInf; s[j][3] = kNegInf; }
-      }
-    }
-
-    // online softmax update, rows g (elements 0,1) and g+8 (elements 2,3)
-    float alpha[2];
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < kSTiles; ++j) mx = fmaxf(mx, fmaxf(s[j][2 * r], s[j][2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_next = fmaxf(st.m[r], mx);
-      alpha[r] = exp2f(st.m[r] - m_next);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < kSTiles; ++j) {
-        s[j][2 * r] = exp2f(s[j][2 * r] - m_next);
-        s[j][2 * r + 1] = exp2f(s[j][2 * r + 1] - m_next);
-        sum += s[j][2 * r] + s[j][2 * r + 1];
-      }
-      st.l[r] = alpha[r] * st.l[r] + sum;
-      st.m[r] = m_next;
-    }
-#pragma unroll
-    for (int j = 0; j < kOTiles; ++j) {
-      st.acc[j][0] *= alpha[0];
-      st.acc[j][1] *= alpha[0];
-      st.acc[j][2] *= alpha[1];
-      st.acc[j][3] *= alpha[1];
-    }
-
-    // O += P V: P (bf16) comes straight from the score accumulators
-#pragma unroll
-    for (int kk = 0; kk < kBlockK / 16; ++kk) {
-      uint32_t pa[4];
-      pa[0] = pack_bf16(s[2 * kk][0], s[2 * kk][1]);
-      pa[1] = pack_bf16(s[2 * kk][2], s[2 * kk][3]);
-      pa[2] = pack_bf16(s[2 * kk + 1][0], s[2 * kk + 1][1]);
-      pa[3] = pack_bf16(s[2 * kk + 1][2], s[2 * kk + 1][3]);
-      const __nv_bfloat16* vr = sV + (kk * 16 + 2 * t) * kSmemStride + g;
-#pragma unroll
-      for (int j = 0; j < kOTiles; ++j) {
-        const __nv_bfloat16* vc = vr + j * 8;
-        const uint32_t b0 = pack_raw(vc[0], vc[kSmemStride]);
-        const uint32_t b1 = pack_raw(vc[8 * kSmemStride], vc[9 * kSmemStride]);
-        mma_16816(st.acc[j], pa, b0, b1);
-      }
-    }
+    mask_kv_tail(s, kv0, n_kv);
+    online_softmax_pv(s, sV, st);
   }
 }
 

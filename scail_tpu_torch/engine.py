@@ -79,16 +79,22 @@ class VideoDiffusionEngine:
 
     def init_params(self, generator: torch.Generator, trainable: bool = False):
         """Random-init every sub-model that has no weights (smoke mode).
-        The DiT is cast to its compute dtype for serving; `trainable` keeps
-        its parameters in f32 with gradients on, as the JAX trainer keeps its
-        params.  The text encoder keeps its width but is cut to 2 layers, as
-        in the JAX engine: random weights only need shape-correct embeddings."""
-        dit = self.network.build(self.device)
-        dit.init_weights_(generator)
+        The DiT is built on the meta device and made one parameter at a time
+        on the engine's device: for serving each parameter is cast to the
+        compute dtype once drawn, so the DiT never holds a whole f32 copy (the
+        14B's would be 66 GB); `trainable` keeps its parameters in f32 with
+        gradients on, as the JAX trainer keeps its params.  The values are
+        those of an f32 build cast afterwards.  The text encoder keeps its
+        width but is cut to 2 layers, as in the JAX engine: random weights
+        only need shape-correct embeddings."""
+        dit = self.network.build("meta")
         if trainable:
+            dit.init_weights_(generator, device=self.device)
             self.dit = dit.requires_grad_(True).train()
         else:
-            self.dit = dit.to(self.network.config.compute_dtype).eval()
+            dit.init_weights_(generator, device=self.device,
+                              dtype=self.network.config.compute_dtype)
+            self.dit = dit.eval()
         if self.first_stage_model is not None and self.first_stage_model.model is None:
             self.first_stage_model.init(generator, device=self.device)
         if self.i2v_clip is not None and self.i2v_clip.model is None:

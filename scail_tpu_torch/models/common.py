@@ -9,13 +9,17 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scail_tpu_torch.ops.quant import QuantizedLinear, dense_quantized
 
-def dense(layer: nn.Linear, x):
-    """x @ W^T + b in x.dtype (the JAX `dense` with an (in, out) kernel).
-    The LoRA and quantized branches of the JAX version are not ported."""
-    if any(hasattr(layer, a) for a in ("lora_a", "qweight", "qweight4")):
-        raise NotImplementedError("LoRA / quantized dense layers are not ported "
-                                  "(ROADMAP Queue 2, K4)")
+
+def dense(layer: nn.Module, x, impl: str = "auto"):
+    """x @ W^T + b in x.dtype (the JAX `dense` with an (in, out) kernel).  A
+    QuantizedLinear goes to the W8A16/W4A16 matmul (ops/quant.py; `impl`
+    'auto' kernel, 'xla' plain version).  The LoRA branch is not ported."""
+    if hasattr(layer, "lora_a"):
+        raise NotImplementedError("LoRA dense layers are not ported (ROADMAP Queue 1)")
+    if isinstance(layer, QuantizedLinear):
+        return dense_quantized(layer, x, impl=impl)
     bias = layer.bias.to(x.dtype) if layer.bias is not None else None
     return F.linear(x, layer.weight.to(x.dtype), bias)
 
@@ -69,16 +73,32 @@ def linear(d_in, d_out, bias=True, device=None, dtype=torch.float32) -> nn.Linea
     return layer
 
 
-def random_init_(module: nn.Module, generator: torch.Generator, std=0.02) -> None:
+def random_init_(module: nn.Module, generator: torch.Generator, std=0.02, *, device=None,
+                 dtype=None) -> None:
     """Random smoke-mode weights: norm scales/gammas one, biases zero, every
     other parameter N(0, std) where `std` is a float or a function
-    (name, parameter) -> float."""
+    (name, parameter) -> float.
+
+    A parameter on the meta device is first made in f32 on `device`; with
+    `dtype`, each parameter is cast once drawn.  Parameters are drawn one at
+    a time in named_parameters() order, so a module built on meta is filled
+    with the same values as one built on `device` and cast afterwards, and
+    never holds a whole f32 copy."""
     with torch.no_grad():
-        for name, p in module.named_parameters():
-            leaf = name.rsplit(".", 1)[-1]
-            if leaf in ("scale", "gamma"):
-                p.fill_(1.0)
-            elif leaf == "bias":
-                p.zero_()
-            else:
-                p.normal_(0.0, std(name, p) if callable(std) else std, generator=generator)
+        for mod_name, mod in module.named_modules():
+            for leaf, p in list(mod._parameters.items()):
+                if p is None:
+                    continue
+                name = f"{mod_name}.{leaf}" if mod_name else leaf
+                if p.is_meta:
+                    p = torch.empty(p.shape, dtype=torch.float32, device=device)
+                if leaf in ("scale", "gamma"):
+                    p.fill_(1.0)
+                elif leaf == "bias":
+                    p.zero_()
+                else:
+                    p.normal_(0.0, std(name, p) if callable(std) else std, generator=generator)
+                if dtype is not None:
+                    p = p.to(dtype)
+                if p is not mod._parameters[leaf]:
+                    mod._parameters[leaf] = nn.Parameter(p, requires_grad=False)

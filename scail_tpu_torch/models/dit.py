@@ -10,8 +10,11 @@ unpatchify of the video tokens.
 
 Single device.  attn_impl='sta' keeps the layer stack in the sliding-tile
 order of ops/sta.py (one gather before the layers, one after) with q and k
-roped in torch, as the JAX package does; the JAX package's Ulysses, ring,
-int8-attention and MoE options raise NotImplementedError.  For training,
+roped in torch, as the JAX package does; attn_impl='pallas_int8' ropes q and
+k in torch and runs the int8-QK flash kernel (ops/attention.py
+attention_int8).  Linears replaced by ops/quant.py's QuantizedLinear (W8A16 /
+W4A16) run the quantized matmul kernel.  The JAX package's Ulysses, ring and
+MoE options raise NotImplementedError.  For training,
 `remat` checkpoints each layer (the JAX `default` remat policy); the policies
 that save or offload the flash outputs raise.  Parameters may be f32 (training)
 or the compute dtype (serving): every use casts them to the compute dtype,
@@ -22,6 +25,7 @@ State-dict paths mirror the JAX parameter tree (convert/from_jax.py).
 from __future__ import annotations
 
 import dataclasses
+import functools
 from typing import Optional, Tuple
 
 import torch
@@ -31,7 +35,7 @@ from torch.utils.checkpoint import checkpoint
 from scail_tpu_torch.models.common import (container, dense, gelu_exact, gelu_tanh, linear,
                                            parameter, random_init_, silu, timestep_embedding)
 from scail_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
-from scail_tpu_torch.ops.attention import attention, dual_cross_attention
+from scail_tpu_torch.ops.attention import attention, attention_int8, dual_cross_attention
 from scail_tpu_torch.ops.norms import layer_norm, modulate, rms_norm
 from scail_tpu_torch.ops.rotary import apply_rotary, build_scail_rope
 from scail_tpu_torch.ops.sta import sta_attention, sta_plan
@@ -42,7 +46,6 @@ DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch
 # attn_impl values of the JAX package that the port does not run yet, with
 # the ROADMAP item that brings each
 UNPORTED_ATTN = {
-    "pallas_int8": "ROADMAP Queue 2: int8 flash attention (K6)",
     "ulysses": "ROADMAP Queue 1: torch.distributed sequence parallelism (Ulysses)",
     "ring": "ROADMAP Queue 1: torch.distributed sequence parallelism (ring attention)",
 }
@@ -92,6 +95,10 @@ class DiTConfig:
     # the port's own: which attention impl the STA calls and the
     # cross-attention take under attn_impl='sta' ('auto' kernels, 'xla' plain)
     sta_impl: str = "auto"
+    # the port's own: which impl the quantized paths take -- every
+    # QuantizedLinear and, under attn_impl='pallas_int8', the int8 attention
+    # and the cross-attention ('auto' kernels, 'xla' plain versions)
+    quant_impl: str = "auto"
 
     @property
     def head_dim(self) -> int:
@@ -151,11 +158,13 @@ class DiTConfig:
         if self.attn_impl in UNPORTED_ATTN:
             raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported: "
                                       f"{UNPORTED_ATTN[self.attn_impl]}")
-        if self.attn_impl not in ATTN_IMPLS + ("sta",):
+        if self.attn_impl not in ATTN_IMPLS + ("sta", "pallas_int8"):
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}, expected one of "
-                             f"{ATTN_IMPLS} (kernels, plain) or 'sta'")
-        if self.sta_impl not in ATTN_IMPLS:
-            raise ValueError(f"unknown sta_impl {self.sta_impl!r}, expected one of {ATTN_IMPLS}")
+                             f"{ATTN_IMPLS} (kernels, plain), 'sta' or 'pallas_int8'")
+        for field in ("sta_impl", "quant_impl"):
+            if getattr(self, field) not in ATTN_IMPLS:
+                raise ValueError(f"unknown {field} {getattr(self, field)!r}, expected one of "
+                                 f"{ATTN_IMPLS}")
         if self.remat and self.remat_policy in UNPORTED_REMAT:
             raise NotImplementedError(f"remat_policy={self.remat_policy!r} is not ported: "
                                       "ROADMAP Queue 1 item 12 (remat policies that save "
@@ -229,10 +238,12 @@ class DiT(nn.Module):
         self._rope_cache = {}
         self._sta_cache = {}
 
-    def init_weights_(self, generator: torch.Generator) -> None:
+    def init_weights_(self, generator: torch.Generator, *, device=None, dtype=None) -> None:
         """Random smoke-mode init with the JAX package's scales: N(0, 0.02)
         linears, xavier-like patch/final projections, AdaLN tables
-        N(0, 1/h); zero-init AdaLN MLPs and cfg-embedding output."""
+        N(0, 1/h); zero-init AdaLN MLPs and cfg-embedding output.  A DiT
+        built on the meta device is made on `device` one parameter at a
+        time, each cast to `dtype` once drawn (common.random_init_)."""
         h = self.config.hidden_size
 
         def std(name, p):
@@ -244,7 +255,7 @@ class DiT(nn.Module):
                 return 0.0
             return 0.02
 
-        random_init_(self, generator, std)
+        random_init_(self, generator, std, device=device, dtype=dtype)
 
     def _rope(self, T, Hp, Wp, h_shift, w_shift, device):
         cfg = self.config
@@ -301,6 +312,7 @@ class DiT(nn.Module):
         """x (b, T, 16, H, W) noisy latent, timesteps (b,) c_noise, context
         (b, S_txt, text_dim); returns the velocity (b, T, 16, H, W)."""
         cfg = self.config
+        lin = functools.partial(dense, impl=cfg.quant_impl)
         cdtype = cfg.compute_dtype
         eps = cfg.layernorm_epsilon
         b, T, _, H, W = x.shape
@@ -319,7 +331,7 @@ class DiT(nn.Module):
                          dim=2)
 
         te = self.text_embedding
-        context = dense(te.fc2, gelu_tanh(dense(te.fc1, context.to(cdtype))))
+        context = lin(te.fc2, gelu_tanh(lin(te.fc1, context.to(cdtype))))
         clip_tokens = None
         if cfg.use_i2v_clip:
             if image_clip_features is None:
@@ -327,22 +339,23 @@ class DiT(nn.Module):
             cp = self.clip_proj
             y = layer_norm(image_clip_features.to(cdtype), cp.ln_in.scale, cp.ln_in.bias,
                            eps=1e-5)
-            y = dense(cp.fc2, gelu_exact(dense(cp.fc1, y)))
+            y = lin(cp.fc2, gelu_exact(lin(cp.fc1, y)))
             clip_tokens = layer_norm(y, cp.ln_out.scale, cp.ln_out.bias, eps=1e-5)
 
         t_emb = timestep_embedding(timesteps, cfg.time_freq_dim, dtype=cdtype)
-        emb = dense(self.time_embed.fc2, silu(dense(self.time_embed.fc1, t_emb)))
+        emb = lin(self.time_embed.fc2, silu(lin(self.time_embed.fc1, t_emb)))
         if cfg.cfg_embed_dim and cfg_scale is not None:
             cs = torch.as_tensor(cfg_scale, dtype=torch.float32, device=dev).reshape(-1)
             cfg_emb = timestep_embedding(cs.expand(b), cfg.time_freq_dim, dtype=cdtype)
-            emb = emb + dense(self.cfg_embed.fc2, silu(dense(self.cfg_embed.fc1, cfg_emb)))
+            emb = emb + lin(self.cfg_embed.fc2, silu(lin(self.cfg_embed.fc1, cfg_emb)))
         adaln_emb = None
         if cfg.share_adaln:
-            adaln_emb = dense(self.adaln_projection.fc, silu(emb)).reshape(b, 6, -1)
+            adaln_emb = lin(self.adaln_projection.fc, silu(emb)).reshape(b, 6, -1)
 
         hidden = torch.cat([
-            _patchify_tokens(torch.cat([ref, x], dim=1), self.patch_embed.proj, cfg.patch_size),
-            _patchify_tokens(pose, self.patch_embed.proj_pose, cfg.patch_size),
+            _patchify_tokens(torch.cat([ref, x], dim=1), self.patch_embed.proj, cfg.patch_size,
+                             cfg.quant_impl),
+            _patchify_tokens(pose, self.patch_embed.proj_pose, cfg.patch_size, cfg.quant_impl),
         ], dim=1)
         ref_len = Hp * Wp
         seq_len = T * Hp * Wp
@@ -367,20 +380,24 @@ class DiT(nn.Module):
         if cfg.share_adaln:
             fmod = emb[:, None, :] + fl.adaln[None].to(emb.dtype)
         else:
-            fmod = dense(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
+            fmod = lin(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
         # only the video tokens are unpatchified: project just those rows
         out = layer_norm(hidden[:, video_rows], eps=eps)
-        out = dense(fl.linear, modulate(out, fmod[:, 0:1], fmod[:, 1:2]))
+        out = lin(fl.linear, modulate(out, fmod[:, 0:1], fmod[:, 1:2]))
         return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
 
     def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos):
         """One DiT block: AdaLN self-attention (q roped in the kernel, or q
-        and k roped in torch for sliding-tile attention), the dual text +
-        CLIP cross-attention, and the AdaLN GELU-tanh MLP."""
+        and k roped in torch for sliding-tile and int8 attention), the dual
+        text + CLIP cross-attention, and the AdaLN GELU-tanh MLP."""
         cfg = self.config
         eps = cfg.layernorm_epsilon
-        # under 'sta' the dense fallback and the cross-attention take sta_impl
-        impl = cfg.sta_impl if cfg.attn_impl == "sta" else cfg.attn_impl
+        lin = functools.partial(dense, impl=cfg.quant_impl)
+        # under 'sta' the dense fallback and the cross-attention take
+        # sta_impl, under 'pallas_int8' the int8 attention and the
+        # cross-attention quant_impl (the JAX cross_impl is 'auto' for both)
+        impl = {"sta": cfg.sta_impl, "pallas_int8": cfg.quant_impl}.get(cfg.attn_impl,
+                                                                        cfg.attn_impl)
 
         def heads(t):
             return t.unflatten(-1, (cfg.num_heads, -1))
@@ -391,43 +408,48 @@ class DiT(nn.Module):
         if cfg.share_adaln:
             mod = adaln_emb + blk.adaln[None].to(adaln_emb.dtype)
         else:
-            mod = dense(blk.adaln_mlp, silu(emb)).reshape(emb.shape[0], 6, -1)
+            mod = lin(blk.adaln_mlp, silu(emb)).reshape(emb.shape[0], 6, -1)
         s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.unsqueeze(2).unbind(1)
 
         # self attention: q roped inside the kernel, k in plain torch; or
         # both roped in torch (in q's dtype, as JAX _rope_per_head) for STA
+        # and int8 attention (JAX ropes in XLA when the rope is not fused)
         ai = modulate(layer_norm(hidden, eps=eps), s_msa, sc_msa)
-        q, k, v = dense(blk.qkv, ai).chunk(3, dim=-1)
+        q, k, v = lin(blk.qkv, ai).chunk(3, dim=-1)
         if cfg.qk_ln:
             q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
         if isinstance(attn_pos, _StaLayout):
             cos, sin = attn_pos.cos[:, None, :], attn_pos.sin[:, None, :]
             q, k = (apply_rotary(heads(t), cos, sin, cfg.interleaved_rope) for t in (q, k))
             attn = sta_attention(q, k, heads(v), pre_tiled=True, impl=impl, **attn_pos.kwargs)
+        elif cfg.attn_impl == "pallas_int8":
+            cos, sin = attn_pos.cos[:, None, :], attn_pos.sin[:, None, :]
+            q, k = (apply_rotary(heads(t), cos, sin, cfg.interleaved_rope) for t in (q, k))
+            attn = attention_int8(q, k, heads(v), impl=impl)
         else:
             attn = attention(heads(q), heads(k), heads(v), impl=impl,
                              rope=(attn_pos.cos, attn_pos.sin),
                              rope_interleaved=cfg.interleaved_rope)
-        hidden = hidden + g_msa * dense(blk.attn_out, attn.flatten(2))
+        hidden = hidden + g_msa * lin(blk.attn_out, attn.flatten(2))
 
         # dual cross attention, no AdaLN modulation or gate
-        cq = dense(blk.cross_q, layer_norm(hidden, eps=eps))
-        ck, cv = dense(blk.cross_kv, context).chunk(2, dim=-1)
+        cq = lin(blk.cross_q, layer_norm(hidden, eps=eps))
+        ck, cv = lin(blk.cross_kv, context).chunk(2, dim=-1)
         if cfg.qk_ln:
             cq, ck = qk_norm(cq, blk.cross_q_norm), qk_norm(ck, blk.cross_k_norm)
         if cfg.use_i2v_clip:
-            pk, pv = dense(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
+            pk, pv = lin(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
             if cfg.qk_ln:
                 pk = qk_norm(pk, blk.clip_k_norm)
             cross = dual_cross_attention(heads(cq), heads(ck), heads(cv), heads(pk), heads(pv),
                                          impl=impl)
         else:
             cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
-        hidden = hidden + dense(blk.cross_out, cross.flatten(2))
+        hidden = hidden + lin(blk.cross_out, cross.flatten(2))
 
         # MLP
         mi = modulate(layer_norm(hidden, eps=eps), s_mlp, sc_mlp)
-        return hidden + g_mlp * dense(blk.mlp_out, gelu_tanh(dense(blk.mlp_in, mi)))
+        return hidden + g_mlp * lin(blk.mlp_out, gelu_tanh(lin(blk.mlp_in, mi)))
 
 
 @dataclasses.dataclass(frozen=True)
@@ -443,13 +465,13 @@ class _StaLayout:
     kwargs: dict
 
 
-def _patchify_tokens(x, proj, patch_size):
+def _patchify_tokens(x, proj, patch_size, impl="auto"):
     """(b, T, C, H, W) -> (b, T*(H/ph)*(W/pw), hidden), (t h w) token order and
     (c, kh, kw) feature order: the stride == kernel patch conv."""
     _, ph, pw = patch_size
     b, T, C, H, W = x.shape
     x = x.reshape(b, T, C, H // ph, ph, W // pw, pw).permute(0, 1, 3, 5, 2, 4, 6)
-    return dense(proj, x.reshape(b, T * (H // ph) * (W // pw), C * ph * pw))
+    return dense(proj, x.reshape(b, T * (H // ph) * (W // pw), C * ph * pw), impl=impl)
 
 
 def _unpatchify(x, T, Hp, Wp, patch_size, out_channels):

@@ -2,20 +2,23 @@
 (counterpart of scail_tpu/ops/attention.py).
 
 Layout at the public functions is (batch, seq, heads, head_dim), as in the
-JAX package.  Three kernel wrappers:
+JAX package.  Four kernel wrappers:
 
   * `flash_attention` -- flash self-attention (csrc/flash_attention.cu), with
     the rotary optionally applied to q inside the kernel (k arrives roped);
   * `flash_attention_bwd` -- its gradient, a dq pass and a dk/dv pass
     (csrc/flash_attention_bwd.cu);
   * `dual_cross_attention_fused` -- the DiT's text + CLIP cross-attention,
-    two softmaxes summed (csrc/dual_cross_attention.cu).
+    two softmaxes summed (csrc/dual_cross_attention.cu);
+  * `flash_attention_int8` -- flash self-attention with q and k quantized
+    per (row, head) to int8 in torch and QK^T in int32 on the tensor cores
+    (csrc/flash_attention_int8.cu).
 
 Each wrapper runs its plain version when given CPU tensors and launches its
 kernel (or raises) for CUDA tensors; there is no fallback from a CUDA tensor
-to the plain version.  Each counts its launches in `LAUNCHES`.  `attention`
-and `dual_cross_attention` are differentiable: their torch.autograd.Functions
-are the counterparts of the JAX custom VJPs.
+to the plain version.  Each counts its launches in `LAUNCHES`.  `attention`,
+`dual_cross_attention` and `attention_int8` are differentiable: their
+torch.autograd.Functions are the counterparts of the JAX custom VJPs.
 """
 
 from __future__ import annotations
@@ -36,7 +39,8 @@ _LN2 = math.log(2.0)
 LAUNCHES = {"flash_attention": 0, "flash_attention_rope": 0, "dual_cross_attention": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "sta_attention_fwd": 0, "sta_attention_fwd_lse": 0,
-            "sta_attention_bwd_dq": 0, "sta_attention_bwd_dkv": 0}
+            "sta_attention_bwd_dq": 0, "sta_attention_bwd_dkv": 0,
+            "flash_attention_int8": 0}
 
 
 def reset_launch_counts() -> None:
@@ -96,6 +100,49 @@ def dual_cross_attention_plain(q, k1, v1, k2, v2, *, scale=None, block_q: int = 
         outs.append((_softmax_stream(qb, k1, v1)[0]
                      + _softmax_stream(qb, k2, v2)[0]).to(q.dtype))
     return torch.cat(outs, dim=1)
+
+
+def quantize_rows(x):
+    """Per-row int8 quantization over the last dim (JAX _quantize_rows):
+    (..., d) -> (int8 codes (..., d), f32 scales (...)), scale =
+    max(absmax, 1e-6) / 127, codes round(x / scale) clipped to +-127."""
+    xf = x.float()
+    scale = xf.abs().amax(dim=-1).clamp_min(1e-6) / 127.0
+    q = torch.round(xf / scale[..., None]).clamp(-127, 127).to(torch.int8)
+    return q, scale
+
+
+def _int8_operands(q, k, scale):
+    """q and k quantized per (row, head), the q scales times scale*log2e (a
+    Python float, as JAX _flash_int8_fwd folds it): (qi, qs, ki, ks), scales
+    (b, s, n) f32."""
+    qi, qs = quantize_rows(q)
+    ki, ks = quantize_rows(k)
+    return qi, qs * (scale * _LOG2E), ki, ks
+
+
+def flash_attention_int8_plain(q, k, v, *, scale=None, block_q: int = 256):
+    """Plain version of `flash_attention_int8`: (out (b,sq,n,d) in v.dtype,
+    lse (b,n,sq) f32, natural log).  With d = 128 every sum of code products
+    is an integer below 2^24, so the f32 product of the codes is the kernel's
+    int32 one exactly; then s = that * (q_scale * k_scale), exp2 softmax, P
+    rounded to v.dtype before P V."""
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    qi, qs, ki, ks = _int8_operands(q, k, scale)
+    kf, vf = ki.float(), v.float()
+    ks_t = ks.transpose(1, 2)[:, :, None, :]  # (b, n, 1, skv)
+    outs, lses = [], []
+    for i in range(0, q.shape[1], block_q):
+        sl = slice(i, i + block_q)
+        s = torch.einsum("bqnd,bknd->bnqk", qi[:, sl].float(), kf)
+        s = s * (qs[:, sl].transpose(1, 2)[..., None] * ks_t)
+        m = s.amax(-1, keepdim=True)
+        p = torch.exp2(s - m)
+        l = p.sum(-1, keepdim=True)
+        o = torch.einsum("bnqk,bknd->bqnd", p.to(v.dtype).float(), vf)
+        outs.append((o / l.permute(0, 2, 1, 3)).to(v.dtype))
+        lses.append(_LN2 * m[..., 0] + torch.log(l[..., 0].clamp_min(1e-30)))
+    return torch.cat(outs, dim=1), torch.cat(lses, dim=2)
 
 
 def _bwd_operands(q, out, lse, do, scale):
@@ -294,6 +341,35 @@ def dual_cross_attention_fused(q, k1, v1, k2, v2, *, scale=None):
     return out
 
 
+def flash_attention_int8(q, k, v, *, scale=None):
+    """int8-QK flash self-attention (b, sq, n, d) x (b, skv, n, d) -> (out,
+    lse): q and k (already roped) are quantized per (row, head) in torch,
+    the kernel runs QK^T in int32 and P V in bf16.  CPU tensors take the
+    plain version."""
+    if q.device.type == "cpu":
+        return flash_attention_int8_plain(q, k, v, scale=scale)
+    if q.device.type != "cuda":
+        raise NotImplementedError(f"flash_attention_int8: no kernel for device {q.device}")
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    for name, t in (("q", q), ("k", k), ("v", v)):
+        _check_operand(name, t, q.device)
+    b, sq, n, d = q.shape
+    skv = k.shape[1]
+    if k.shape != (b, skv, n, d) or v.shape != k.shape or b * n > 65535 or skv == 0:
+        raise ValueError(f"flash_attention_int8: unsupported shapes q {tuple(q.shape)} "
+                         f"k {tuple(k.shape)} v {tuple(v.shape)}")
+    qi, qs, ki, ks = _int8_operands(q, k, scale)
+    out = torch.empty((b, sq, n, d), dtype=v.dtype, device=q.device)
+    lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
+    rc = cuda_build.lib().scail_flash_attention_int8_fwd(
+        qi.data_ptr(), ki.data_ptr(), v.data_ptr(), qs.data_ptr(), ks.data_ptr(),
+        out.data_ptr(), lse.data_ptr(), b, n, sq, skv,
+        *_strides(qi), *_strides(ki), *_strides(v), *_strides(out), _stream(q.device))
+    cuda_build.check(rc, "flash_attention_int8")
+    LAUNCHES["flash_attention_int8"] += 1
+    return out, lse
+
+
 def flash_attention_bwd(q, k, v, out, lse, do, *, scale=None):
     """Gradient of `flash_attention` (no rotary: q and k already roped), from
     its output and natural-log LSE: (dq, dk, dv), two kernel launches.  CPU
@@ -413,6 +489,28 @@ class _DualCrossAttention(torch.autograd.Function):
         return (*dual_cross_attention_bwd_plain(*ctx.saved_tensors, g, scale=ctx.scale), None)
 
 
+class _FlashAttentionInt8(torch.autograd.Function):
+    """int8-QK flash attention forward; the backward is the exact bf16 one
+    (K5) on the original q and k with the int8 forward's output and LSE (JAX
+    _flash_int8_vjp_bwd, the straight-through treatment).  q and k arrive
+    roped.  use_kernel False takes the plain versions both ways."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, scale, use_kernel):
+        fwd = flash_attention_int8 if use_kernel else flash_attention_int8_plain
+        out, lse = fwd(q, k, v, scale=scale)
+        ctx.save_for_backward(q, k, v, out, lse)
+        ctx.scale, ctx.use_kernel = scale, use_kernel
+        return out
+
+    @staticmethod
+    def backward(ctx, do):
+        q, k, v, out, lse = ctx.saved_tensors
+        bwd = flash_attention_bwd if ctx.use_kernel else flash_attention_bwd_plain
+        dq, dk, dv = bwd(q, k, v, out, lse, do.contiguous(), scale=ctx.scale)
+        return dq, dk, dv, None, None
+
+
 # --------------------------------------------------------------------------
 # Public ops
 # --------------------------------------------------------------------------
@@ -456,3 +554,13 @@ def dual_cross_attention(q, k1, v1, k2, v2, *, scale: float = None, impl: str = 
         scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
         return _DualCrossAttention.apply(q, k1, v1, k2, v2, scale)
     return dual_cross_attention_plain(q, k1, v1, k2, v2, scale=scale)
+
+
+def attention_int8(q, k, v, *, scale: float = None, impl: str = "auto"):
+    """Self-attention with int8-quantized q and k (JAX attention(impl=
+    'pallas_int8')); q and k carry their rotary already.  impl 'auto' takes
+    the kernel wrappers (plain versions on CPU tensors), 'xla' the plain
+    versions on any device; both differentiate through the exact backward."""
+    use_kernel = _check_impl(impl)
+    scale = scale if scale is not None else 1.0 / math.sqrt(q.shape[-1])
+    return _FlashAttentionInt8.apply(q, k, v, scale, use_kernel)

@@ -183,3 +183,86 @@ def test_sta_attention_gradients_on_the_card_match_the_plain_path(cuda):
         grads.append([t.grad for t in ts])
     for g, want in zip(*grads):
         _assert_close(g, want.to(g.device))
+
+
+def _matmul_view(t):
+    """A (..., N) matmul output as error_vs_plain's (1, rows, 1, N)."""
+    return t.reshape(1, -1, 1, t.shape[-1])
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("n, bias, strided", [(200, False, False), (201, True, True)])
+def test_quantized_matmul_kernels_match_plain(cuda, bits, n, bias, strided):
+    """K4 (W8A16 / W4A16) at M = 300 and N = 200 or 201, neither a multiple
+    of the 128 x 128 tile, K = 160 (five 32-deep steps); every int4 nibble,
+    -8 included; with a bias and x rows on a wider stride."""
+    from scail_tpu_torch.ops import quant as Q
+
+    k = 160
+    x = _rnd(cuda, 300, 2 * k)[:, :k] if strided else _rnd(cuda, 2, 150, k)
+    if bits == 8:
+        codes = torch.randint(-127, 128, (n, k), generator=cuda, device="cuda",
+                              dtype=torch.int8)
+    else:
+        codes = torch.randint(0, 256, (n, k // 2), generator=cuda, device="cuda",
+                              dtype=torch.uint8)
+        codes[0] = torch.arange(k // 2, device="cuda", dtype=torch.uint8) * 3  # many bytes
+        assert Q.unpack_int4(codes).min().item() == -8
+    scale = (torch.rand(n, generator=cuda, device="cuda") * 0.02 + 1e-3).bfloat16()
+    b = _rnd(cuda, n) if bias else None
+    mm = Q.matmul_w8a16 if bits == 8 else Q.matmul_w4a16
+    name = f"w{bits}a16_matmul"
+    before = Q.LAUNCHES[name]
+    got = mm(x, codes, scale, b)
+    torch.cuda.synchronize()
+    assert Q.LAUNCHES[name] == before + 1
+    want = mm(x, codes, scale, b, impl="xla")
+    assert got.shape == want.shape == (*x.shape[:-1], n) and got.dtype == torch.bfloat16
+    _assert_close(_matmul_view(got), _matmul_view(want))
+    # the same product from the f32 plain version of the dequantized weight
+    w = (codes.float() if bits == 8 else Q.unpack_int4(codes).float()) * scale.float()[:, None]
+    ref = (x.float() @ w.T).to(torch.bfloat16)
+    if b is not None:
+        ref = ref + b
+    _assert_close(_matmul_view(got), _matmul_view(ref))
+
+
+@pytest.mark.cuda
+def test_quantized_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
+    from scail_tpu_torch.ops import quant as Q
+
+    codes = torch.zeros(32, 40, dtype=torch.int8, device="cuda")
+    with pytest.raises(ValueError):  # K = 40 is not a multiple of 16
+        Q.matmul_w8a16(_rnd(cuda, 4, 40), codes, torch.ones(32, device="cuda"))
+    with pytest.raises(TypeError):
+        Q.matmul_w8a16(_rnd(cuda, 4, 32).float(), codes[:, :32].contiguous(),
+                       torch.ones(32, device="cuda"))
+
+
+@pytest.mark.cuda
+def test_flash_attention_int8_kernel_matches_plain(cuda):
+    """K6 at q 150 and kv 176 rows (q and KV tails), v a head-strided slice."""
+    q, k = _rnd(cuda, 2, 150, 2, 128), _rnd(cuda, 2, 176, 2, 128)
+    v = _rnd(cuda, 2, 176, 2, 3 * 128)[..., 128:256]
+    before = A.LAUNCHES["flash_attention_int8"]
+    out, lse = A.flash_attention_int8(q, k, v)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["flash_attention_int8"] == before + 1
+    want, want_lse = A.flash_attention_int8_plain(q, k, v)
+    _assert_close(out, want)
+    _assert_close(lse, want_lse, lse=True)
+
+
+@pytest.mark.cuda
+def test_attention_int8_gradients_on_the_card_match_the_plain_path(cuda):
+    """attention_int8 on the card (K6 forward, K5 backward) against the same
+    Function on CPU copies of the same bf16 inputs (plain versions)."""
+    q, k, v, w = (_rnd(cuda, 1, 150, 2, 128) for _ in range(4))
+    grads = []
+    for device in ("cuda", "cpu"):
+        ts = [t.detach().to(device).requires_grad_() for t in (q, k, v)]
+        (A.attention_int8(*ts).float() * w.to(device).float()).sum().backward()
+        grads.append([t.grad for t in ts])
+    for g, want in zip(*grads):
+        _assert_close(g, want.to(g.device))

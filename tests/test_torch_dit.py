@@ -83,7 +83,7 @@ def test_dit_plain_impl_matches_kernel_wrapper_on_cpu():
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", ["ulysses", "ring", "pallas_int8"])
+@pytest.mark.parametrize("impl", ["ulysses", "ring"])
 def test_unported_attn_impl_raises(impl):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiT(DiTConfig(**TINY, attn_impl=impl))
