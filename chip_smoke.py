@@ -54,15 +54,29 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  built one parameter at a time (its build peak is checked to
                  hold no f32 copy) and its int8 kernel path vs its plain path on
                  a small input.
+  5c. CLI long clip -- the sampling CLI with the 1.3B YAML and
+                 configs/sampling/pose_cli_long.yaml (RFSamplerLong) on a
+                 161-frame 512x896 synthetic example, 2 steps: 41 latent frames
+                 in 3 tiles of 21, 8 DiT forwards at CFG batch 2 and 48,832
+                 tokens, exactly 240 K1 + 240 K3 + 488 K9 + 240 K10; an .mp4 of
+                 161 x 512 x 896 frames, per-phase seconds and peak GB.  Runs
+                 after phase 5b.
+
+Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
+each layer's attention and MLP, and in the final layer) and the rotary
+kernel (K10) on k in every dense layer, on q and k under STA and int8-QK, and
+on q in the dense backward; the exact counts above include them (phase 3
+holds both against their plain versions at the main-path shapes).
 
 The line before the last is {"kernels": [...]}: per kernel its launches on the
-main paths (`launches_by_path`: the sampling CLI of phases 5 and 5b, the
+main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
 train CLI of phases 6 and 6b and the 14B paths of phases 7, 7b and 8, each
 counted from 0, and their sum), its largest error against the plain version,
 the kernel's, the plain version's and the library call's milliseconds at the
 main-path shape, and the bound: the larger of bytes moved over 3.35 TB/s and
-the operations over the tensor cores' dense rates (989 TFLOP/s bf16, 1,979
-TOP/s int8; H100 SXM).  The last line is {"ok": true, "device": ...}.
+the operations over the card's dense rates (989 TFLOP/s bf16 and 1,979 TOP/s
+int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  The last
+line is {"ok": true, "device": ...}.
 """
 
 import json
@@ -78,10 +92,12 @@ WORK = os.path.join(ROOT, "build", "chip_smoke")
 DIT_REL_TOL = 3e-2
 # the same for the DiT's parameter gradients through the training loss
 GRAD_REL_TOL = 5e-2
-# H100 SXM: HBM bytes/s and bf16 / int8 dense tensor-core rates (NVIDIA data sheet)
+# H100 SXM: HBM bytes/s, bf16 / int8 dense tensor-core rates and the f32 rate
+# outside the tensor cores (NVIDIA data sheet)
 HBM_BYTES_PER_S = 3.35e12
 BF16_FLOPS = 989e12
 INT8_OPS = 1979e12
+F32_FLOPS = 67e12
 
 
 def log(msg):
@@ -108,11 +124,11 @@ def timed_ms(fn, iters=3):
     return start.elapsed_time(end) / iters
 
 
-def bound(flops, moved, int8_ops=0):
+def bound(flops, moved, int8_ops=0, f32_ops=0):
     """(ms, 'operations' | 'bytes'): the least time the card needs to do
-    `flops` bf16 and `int8_ops` int8 tensor-core operations and move `moved`
-    bytes."""
-    t_ops = (flops / BF16_FLOPS + int8_ops / INT8_OPS) * 1e3
+    `flops` bf16 and `int8_ops` int8 tensor-core operations and `f32_ops`
+    f32 operations outside the tensor cores, and move `moved` bytes."""
+    t_ops = (flops / BF16_FLOPS + int8_ops / INT8_OPS + f32_ops / F32_FLOPS) * 1e3
     t_bytes = moved / HBM_BYTES_PER_S * 1e3
     return (t_ops, "operations") if t_ops >= t_bytes else (t_bytes, "bytes")
 
@@ -306,6 +322,137 @@ def phase_kernels():
     results.update(sta)
     results.update(_quant_kernels(gen))
     results["flash_attention_int8"] = _int8_kernel(gen, rnd)
+    results.update(_norm_kernels(gen, rnd))
+    return results
+
+
+# K9 at the main-path shapes, CFG batch 2: (name, rows per batch element, d):
+# a layer's 48,832 tokens at the 1.3B and 14B widths, and the final layer's
+# 37,632 video rows; the first is the headline entry
+NORM_SHAPES = (("1.3B layer", 48832, 1536), ("14B layer", 48832, 5120),
+               ("1.3B final layer", 37632, 1536))
+# K10 on the q and k column slices of the qkv projection at CFG batch 2,
+# 48,832 tokens: (name, hidden, heads)
+ROTARY_SHAPES = (("1.3B", 1536, 12), ("14B", 5120, 40))
+# f32 operations per element: K9 the sum, the centred square and its sum, the
+# centring, scaling and modulation (8); K10 two products and a sum (3)
+NORM_OPS, ROTARY_OPS = 8, 3
+
+
+def _norm_compare(name, got, want):
+    """K9 against its plain version within fused_norms' limits; returns the
+    max-abs error."""
+    from scail_tpu_torch.ops import fused_norms as FN
+
+    e = FN.adaln_error_vs_plain(got, want)
+    PER_STD["adaln_layer_norm"] = max(PER_STD.get("adaln_layer_norm", 0.0), e["err_per_std"])
+    log(f"{name}: max_abs_err {e['max_abs_err']:.3e} (limit {e['max_abs_limit']:.3e}, one bf16 "
+        f"ulp of the largest output), rel L2 {e['rel_l2']:.3e} (limit {FN.ADALN_REL_L2}) "
+        f"{'ok' if e['ok'] else 'OUT OF TOLERANCE'}")
+    if not e["ok"]:
+        fail(f"{name} disagrees with its plain version")
+    return e["max_abs_err"]
+
+
+def _rotary_compare(name, got, want):
+    """K10 against its plain version: bit-exact."""
+    import torch
+
+    exact = got.shape == want.shape and got.dtype == want.dtype and torch.equal(got, want)
+    err = (got.float() - want.float()).abs().max().item()
+    log(f"{name}: max_abs_err {err:.3e} (limit 0, bit-exact) "
+        f"{'ok' if exact else 'OUT OF TOLERANCE'}")
+    if not exact:
+        fail(f"{name} is not bit-exact against its plain version")
+    PER_STD["rotary"] = 0.0
+    return err
+
+
+def _norm_kernels(gen, rnd):
+    """K9 and K10 against their plain versions: a ragged small case (s 150,
+    d 64, x rows on a wider stride; K10 with 3 heads), then K9 at each of
+    NORM_SHAPES with bf16 and f32 shift/scale (strided rows of a (2, 6, d)
+    table, as the DiT passes them) and K10 on the q and k views of each of
+    ROTARY_SHAPES' qkv tensors with SCAIL's tables; times of kernel, plain
+    version and the library yardstick (K9: F.layer_norm with weight 1 + scale
+    and bias shift, one call per batch row, the same function in b calls; K10:
+    none), beside the bound: bytes over 3.35 TB/s (x and the output, shift,
+    scale, the f32 tables) against the f32 operations over 67 TFLOP/s."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.ops import fused_norms as FN
+    from scail_tpu_torch.ops.rotary import build_scail_rope
+
+    eps = 1e-6
+    x = rnd(2, 150, 2 * 64)[..., 64:]
+    for mdt in (torch.bfloat16, torch.float32):
+        shift, scale = rnd(2, 6, 64).to(mdt).unsqueeze(2).unbind(1)[:2]
+        _norm_compare(f"adaln small (2,150,64) strided, {str(mdt)[6:]} shift/scale",
+                      FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps),
+                      FN.adaln_layer_norm_plain(x, shift, scale, eps=eps))
+    ang = torch.randn(150, 32, generator=gen, device="cuda").repeat_interleave(2, -1)
+    xr = rnd(2, 150, 3 * 3 * 64)[..., 64:4 * 64].unflatten(-1, (3, 64))
+    _rotary_compare("rotary small (2,150,3,64) strided",
+                    FN.rotary_kernel(xr, ang.cos(), ang.sin()),
+                    FN.apply_rotary_fused_plain(xr, ang.cos(), ang.sin()))
+
+    by_shape = {}
+    for name, s, d in NORM_SHAPES:
+        x = rnd(2, s, d)
+        mod = rnd(2, 6, d)
+        err = 0.0
+        for mdt in (torch.bfloat16, torch.float32):
+            shift, scale = mod.to(mdt).unsqueeze(2).unbind(1)[:2]
+            out = FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps)
+            torch.cuda.synchronize()
+            err = max(err, _norm_compare(f"adaln {name} (2,{s},{d}), {str(mdt)[6:]} shift/scale",
+                                         out, FN.adaln_layer_norm_plain(x, shift, scale, eps=eps)))
+        shift, scale = mod.unsqueeze(2).unbind(1)[:2]
+        ms = timed_ms(lambda: FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps), iters=20)
+        plain_ms = timed_ms(lambda: FN.adaln_layer_norm_plain(x, shift, scale, eps=eps), iters=2)
+        weight, bias = 1 + scale[:, 0], shift[:, 0]
+        library_ms = timed_ms(lambda: [F.layer_norm(x[i], (d,), weight[i], bias[i], eps)
+                                       for i in range(2)], iters=20)
+        b_ms, b_by = bound(0, nbytes(x, shift, scale, out), f32_ops=NORM_OPS * x.numel())
+        log(f"adaln {name} (2,{s},{d}): kernel {ms:.4f} ms ({nbytes(x, out) / ms / 1e6:.1f} GB/s), "
+            f"plain {plain_ms:.3f} ms, F.layer_norm per batch row (2 calls) {library_ms:.4f} ms, "
+            f"bound {b_ms:.4f} ms ({b_by})")
+        by_shape[name] = dict(shape=[2, s, d], max_abs_err=err, ms=ms, plain_ms=plain_ms,
+                              bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        del x, mod, out
+        torch.cuda.empty_cache()
+    results = {"adaln_layer_norm": dict(by_shape[NORM_SHAPES[0][0]], by_shape=by_shape,
+                                        max_abs_err=max(e["max_abs_err"]
+                                                        for e in by_shape.values()))}
+
+    tabs = build_scail_rope(128, 21, 32, 56, interleaved=True, device="cuda")
+    by_shape = {}
+    for name, hidden, heads in ROTARY_SHAPES:
+        qkv = rnd(2, 48832, 3 * hidden)
+        q, k = (t.unflatten(-1, (heads, 128)) for t in qkv.chunk(3, dim=-1)[:2])
+        err = 0.0
+        for which, t in (("q", q), ("k", k)):
+            out = FN.rotary_kernel(t, tabs.cos, tabs.sin)
+            torch.cuda.synchronize()
+            err = max(err, _rotary_compare(f"rotary {name} {which} of {tuple(qkv.shape)}",
+                                           out, FN.apply_rotary_fused_plain(t, tabs.cos, tabs.sin)))
+        ms = timed_ms(lambda: FN.rotary_kernel(q, tabs.cos, tabs.sin), iters=20)
+        plain_ms = timed_ms(lambda: FN.apply_rotary_fused_plain(q, tabs.cos, tabs.sin), iters=2)
+        # the q view read and the output written (the same number of bf16
+        # values), and the f32 tables
+        b_ms, b_by = bound(0, 2 * nbytes(out) + nbytes(tabs.cos, tabs.sin),
+                           f32_ops=ROTARY_OPS * q.numel())
+        log(f"rotary {name} {tuple(q.shape)} q view: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.3f} ms, bound {b_ms:.4f} ms ({b_by}); no single PyTorch call applies "
+            "an interleaved rotary")
+        # library_ms None: no one PyTorch call applies an interleaved rotary
+        by_shape[name] = dict(shape=list(q.shape), max_abs_err=err, ms=ms,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by, library_ms=None)
+        del qkv, q, k, out
+        torch.cuda.empty_cache()
+    results["rotary"] = dict(by_shape[ROTARY_SHAPES[0][0]], by_shape=by_shape,
+                             max_abs_err=max(e["max_abs_err"] for e in by_shape.values()))
     return results
 
 
@@ -846,6 +993,13 @@ def _dit_inputs(gen, T, H, W):
                 image_clip_features=rnd(2, 257, 1280))
 
 
+# the dense DiT's launches per forward: in each of 30 layers K1, K3, the k
+# rotary (K10) and the AdaLN LayerNorm before attention and before the MLP
+# (K9), and K9 once more in the final layer
+DIT_LAUNCHES = {"flash_attention_rope": 30, "dual_cross_attention": 30,
+                "adaln_layer_norm": 61, "rotary": 30}
+
+
 def phase_dit():
     import dataclasses
 
@@ -869,8 +1023,7 @@ def phase_dit():
         fwd_ms = (time.perf_counter() - t0) * 1e3
     counts = launch_counts()
     log(f"DiT 1.3B forward, CFG batch 2, 48,832 tokens: {fwd_ms:.1f} ms; launches {counts}")
-    if counts["flash_attention_rope"] != 30 or counts["dual_cross_attention"] != 30:
-        fail(f"expected 30 + 30 kernel launches per forward, got {counts}")
+    _exact(counts, DIT_LAUNCHES, "one DiT forward")
     if tuple(out.shape) != (2, 21, 16, 64, 112) or not torch.isfinite(out).all():
         fail(f"DiT output bad: shape {tuple(out.shape)}, finite "
              f"{bool(torch.isfinite(out).all())}")
@@ -934,15 +1087,19 @@ def phase_cli():
                 and decoded.shape == (frames, 512, 896, 3) and np.ptp(decoded) > 0):
             fail(f"request {rec['case']}: expected an .mp4 of {frames} finite, "
                  "non-constant 512x896 frames")
-    if counts["flash_attention_rope"] == 0 or counts["dual_cross_attention"] == 0:
-        fail(f"the CLI run did not go through the kernels: {counts}")
+    # 2 requests x 2 steps, one DiT forward at CFG batch 2 each
+    _exact(counts, {k: 4 * v for k, v in DIT_LAUNCHES.items()}, "the CLI, 2 requests x 2 steps")
     return counts, records
 
 
 # the DiT's launches per training step with remat: forward + recompute for the
-# forward kernels, one each for the two backward kernels, in each of 30 layers
+# forward kernels, one each for the two backward kernels, in each of 30 layers;
+# K9 twice per layer site and once in the final layer (not recomputed), K10
+# on k in the forward and the recompute and on q in the backward (the K9 and
+# K10 backwards are plain torch)
 TRAIN_LAUNCHES_PER_STEP = {"flash_attention_rope": 60, "dual_cross_attention": 60,
-                           "flash_attention_bwd_dq": 30, "flash_attention_bwd_dkv": 30}
+                           "flash_attention_bwd_dq": 30, "flash_attention_bwd_dkv": 30,
+                           "adaln_layer_norm": 121, "rotary": 90}
 # One checkpoint of the 30-layer trainer state (f32 params, two Adam moments,
 # EMA shadow) is ~23.4 GiB, and the chip machine allows ~45 GiB of disk writes
 # per run: save and resume are checked on the same YAML cut to this depth.
@@ -1109,15 +1266,17 @@ def phase_train(ex81):
 
 
 # the STA DiT's launches: per forward, the video and the pose windowed calls
-# (K7) and the dense ref rows (K2) in each of 30 layers, and the dual cross-
-# attention (K3); per training step with remat, forward and recompute of
-# those, K7 with the LSE, and one backward of each windowed call (K8) and of
-# the ref rows (K5)
-STA_DIT_LAUNCHES = {"sta_attention_fwd": 60, "flash_attention": 30, "dual_cross_attention": 30}
+# (K7) and the dense ref rows (K2) in each of 30 layers, the dual cross-
+# attention (K3), K9 as in the dense DiT and K10 on q and k; per training step
+# with remat, forward and recompute of those, K7 with the LSE, and one
+# backward of each windowed call (K8) and of the ref rows (K5)
+STA_DIT_LAUNCHES = {"sta_attention_fwd": 60, "flash_attention": 30, "dual_cross_attention": 30,
+                    "adaln_layer_norm": 61, "rotary": 60}
 STA_TRAIN_LAUNCHES_PER_STEP = {"sta_attention_fwd_lse": 120, "flash_attention": 60,
                                "dual_cross_attention": 60, "sta_attention_bwd_dq": 60,
                                "sta_attention_bwd_dkv": 60, "flash_attention_bwd_dq": 30,
-                               "flash_attention_bwd_dkv": 30}
+                               "flash_attention_bwd_dkv": 30, "adaln_layer_norm": 121,
+                               "rotary": 120}
 # a small latent (T, H, W) at which the DiT's default STA runs with the
 # windowed pose and the pose-kv window: Hp 32, Wp 8, ts 192, pose tiles of 48
 STA_SMALL = (3, 64, 16)
@@ -1243,11 +1402,15 @@ def phase_train_sta(ex81):
 
 # the 14B paths' launches: one forward runs 8 quantized linears (qkv,
 # attn_out, cross_q, cross_kv, clip_kv, cross_out, mlp_in, mlp_out), one
-# self-attention and one dual cross-attention in each of 40 layers
-DIT14B_W8_LAUNCHES = {"w8a16_matmul": 320, "flash_attention_rope": 40, "dual_cross_attention": 40}
+# self-attention, one dual cross-attention, two K9 and the rotary of k (of q
+# and k under int8-QK) in each of 40 layers, and K9 in the final layer
+DIT14B_W8_LAUNCHES = {"w8a16_matmul": 320, "flash_attention_rope": 40, "dual_cross_attention": 40,
+                      "adaln_layer_norm": 81, "rotary": 40}
 E2E14B_W4_LAUNCHES = {"w4a16_matmul": 1280, "flash_attention_rope": 160,
-                      "dual_cross_attention": 160}  # 2 steps x 2 CFG halves
-CLI14B_INT8_LAUNCHES = {"flash_attention_int8": 80, "dual_cross_attention": 80}  # 2 steps
+                      "dual_cross_attention": 160, "adaln_layer_norm": 324,
+                      "rotary": 160}  # 2 steps x 2 CFG halves
+CLI14B_INT8_LAUNCHES = {"flash_attention_int8": 80, "dual_cross_attention": 80,
+                        "adaln_layer_norm": 162, "rotary": 160}  # 2 steps
 DIT14B_WIDTHS = (5120, 40, 40, 13824)
 # a small latent (T, H, W) for the 14B kernel-vs-plain checks: 304 tokens
 SMALL_14B = (3, 16, 16)
@@ -1434,6 +1597,91 @@ def phase_cli_14b_int8(ex81):
                         build_gb=build_gb, rel=rel)
 
 
+# the long clip: 161 frames -> 41 latent frames in tiles of 21 overlapping by
+# 8 ([0, 20], [13, 33], [20, 40]); each of the 2 steps denoises the tile pairs
+# (0, 1) and (1, 2), 4 DiT forwards at CFG batch 2 and 48,832 tokens
+LONG_TILES = [(0, 20), (13, 33), (20, 40)]
+LONG_FORWARDS = 8
+LONG_LAUNCHES = {k: LONG_FORWARDS * v for k, v in DIT_LAUNCHES.items()}
+
+
+def _tokens(x_shape, patch=(2, 2)):
+    """The DiT's fused sequence for a latent (b, T, C, H, W): ref + video +
+    half-resolution pose tokens."""
+    T, H, W = x_shape[1], x_shape[3] // patch[0], x_shape[4] // patch[1]
+    return H * W + T * H * W + T * (H // 2) * (W // 2)
+
+
+def phase_cli_long():
+    """The sampling CLI with the long-clip YAML (RFSamplerLong) on a 161-frame
+    512x896 synthetic example, 2 steps: 3 tiles, 8 DiT forwards at CFG batch 2
+    and 48,832 tokens, exact launches, the .mp4's 161 frames, per-phase
+    seconds and peak GB."""
+    import gc
+
+    import numpy as np
+    import torch
+
+    from scail_tpu_torch.cli import sample_video
+    from scail_tpu_torch.data.video import load_video_frames
+    from scail_tpu_torch.models.dit import DiT
+
+    ex161 = os.path.join(WORK, "synthetic_161")
+    subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "make_synthetic_example.py"),
+                    ex161, "--frames", "161", "--size", "512", "896"], check=True, timeout=600)
+    prompts = os.path.join(WORK, "prompts_long.txt")
+    with open(prompts, "w") as f:
+        f.write(f"a character dancing@@{ex161}\n")
+    argv = ["--base", os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml"),
+            os.path.join(ROOT, "configs", "sampling", "pose_cli_long.yaml"),
+            "--input-type", "txt", "--input-file", prompts, "--sampling-steps", "2",
+            "--device", "cuda", "--output-dir", os.path.join(WORK, "samples_long")]
+    log("CLI long clip: python -m scail_tpu_torch.cli.sample_video " + " ".join(argv))
+    seen = {"tiles": [], "forwards": []}
+    real_tiles, real_forward = sample_video.make_tile_indices, DiT.forward
+
+    def make_tile_indices(*a):
+        seen["tiles"].append(real_tiles(*a))
+        return seen["tiles"][-1]
+
+    def forward(self, x, *a, **kw):
+        seen["forwards"].append((x.shape[0], _tokens(x.shape)))
+        return real_forward(self, x, *a, **kw)
+
+    sample_video.make_tile_indices, DiT.forward = make_tile_indices, forward
+    try:
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        records = sample_video.main(argv)
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        sample_video.make_tile_indices, DiT.forward = real_tiles, real_forward
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    rec = records[0]
+    out = rec["outputs"][0]
+    decoded = load_video_frames(out)[0]
+    tiles = [(t[0], t[-1]) for t in seen["tiles"][0]] if seen["tiles"] else None
+    log(f"CLI long clip answered {len(records)} request in {rec['seconds']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rec["phases"].items())
+        + f"; {total:.1f} s with the engine build); tiles {tiles}; DiT forwards (batch, tokens) "
+        f"{seen['forwards']}; {os.path.relpath(out, ROOT)} decodes to {decoded.shape} (mean "
+        f"{decoded.mean():.1f}), samples finite {rec['finite']}; peak allocated {peak_gb:.2f} GB; "
+        f"launches { {k: v for k, v in counts.items() if v} }")
+    if tiles != LONG_TILES or seen["forwards"] != [(2, 48832)] * LONG_FORWARDS:
+        fail(f"long clip: expected tiles {LONG_TILES} and {LONG_FORWARDS} forwards at CFG batch "
+             f"2 and 48,832 tokens, got {tiles} and {seen['forwards']}")
+    _exact(counts, LONG_LAUNCHES, "the long-clip CLI, 2 steps")
+    if len(records) != 1 or not (rec["finite"] and out.endswith(".mp4")
+                                 and decoded.shape == (161, 512, 896, 3) and np.ptp(decoded) > 0):
+        fail("long-clip request: expected one .mp4 of 161 finite, non-constant 512x896 frames")
+    del records
+    gc.collect()
+    torch.cuda.empty_cache()
+    return counts, dict(rec, total_s=total, peak_gb=peak_gb)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -1448,6 +1696,7 @@ def main():
     sample_counts, records = phase_cli()
     ex81 = os.path.join(WORK, "synthetic_081")
     sta_sample_counts, sta_record = phase_cli_sta(ex81)
+    long_counts, long_rec = phase_cli_long()
     train_counts, train = phase_train(ex81)
     sta_train_counts, sta_train = phase_train_sta(ex81)
     w8_counts, w8 = phase_dit14b_w8()
@@ -1466,11 +1715,15 @@ def main():
         f"peak {w8['peak_gb']:.2f} GB); 14B W4A16 clip step {w4['step_s']} s, decode "
         f"{w4.get('vae_decode_s')} s ({w4['param_gb']} GB of parameters, peak {w4['peak_gb']} "
         f"GB); 14B int8 request {int8['seconds']:.2f} s, peak {int8['peak_gb']:.2f} GB; "
+        f"161-frame long-clip request {long_rec['seconds']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in long_rec["phases"].items())
+        + f"), peak {long_rec['peak_gb']:.2f} GB; "
         f"whole run {time.perf_counter() - t_start:.0f} s; card {card}")
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
              "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
-             "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts}
+             "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts,
+             "sample_cli_long": long_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}
@@ -1496,6 +1749,8 @@ def main():
         entry("w4a16_matmul", csrc + "w8a16_matmul.cu", "scail_tpu/ops/quant.py:65"),
         entry("flash_attention_int8", csrc + "flash_attention_int8.cu",
               "scail_tpu/ops/attention.py:708"),
+        entry("adaln_layer_norm", csrc + "fused_norms.cu", "scail_tpu/ops/fused_norms.py:28"),
+        entry("rotary", csrc + "fused_norms.cu", "scail_tpu/ops/fused_norms.py:79"),
     ]}
     print(json.dumps(report), flush=True)
     print(json.dumps({"ok": True, "device": {"platform": "gpu",

@@ -29,9 +29,10 @@ torch.profiler reads from CUPTI), device busy share (device ms / wall ms, one
 stream), peak allocated memory, and device ms by group (each attention
 kernel: K1 flash_attention, K2 flash_attention_norope, K5 flash_attention_bwd,
 K3 dual_cross_attention, K7 sta_attention, K8 sta_attention_bwd, K4
-w8a16_matmul (W8A16 and W4A16), K6 flash_attention_int8; GEMMs,
-convolutions, copies, the rest).  Prints one JSON line per phase and writes
-each phase's kernel table under --out.
+w8a16_matmul (W8A16 and W4A16), K6 flash_attention_int8, K9
+adaln_layer_norm, K10 rotary; GEMMs, convolutions, copies, the rest).
+Prints one JSON line per phase and writes each phase's kernel table under
+--out.
 
   python -m scail_tpu_torch.cli.profile [--out build/profile] [--phases dit ...]
 """
@@ -59,6 +60,8 @@ GROUPS = (("w8a16_matmul", ("w8a16_kernel",)),
           ("sta_attention", ("sta_fwd_kernel",)),
           ("sta_attention_bwd", ("sta_bwd_",)),
           ("dual_cross_attention", ("dual_cross_kernel",)),
+          ("adaln_layer_norm", ("adaln_ln_kernel",)),
+          ("rotary", ("rotary_kernel",)),
           ("conv", ("fprop", "dgrad", "wgrad", "conv", "winograd")),
           ("gemm", ("gemm", "nvjet", "cutlass")),
           ("copy", ("memcpy", "memset", "copy", "nchwtonhwc", "nhwctonchw")))

@@ -3,7 +3,10 @@ scail_tpu/cli/sample_video.py).
 
 Input lines are "<prompt>@@<example_dir>"; the dir holds a reference image
 (ref.jpg/ref.png/...) and a rendered pose video.  Outputs land in
-<output_dir>/<case>/<case>_output_000000.mp4.
+<output_dir>/<case>/<case>_output_000000.mp4.  With the long-clip sampler
+(configs/sampling/pose_cli_long.yaml, RFSamplerLong) the latent frames are cut
+into tiles of `long_tile` frames overlapping by `long_overlap` (YAML args,
+default 21 and 8), each tile with its own slice of the pose latent.
 
 Usage:
   python -m scail_tpu_torch.cli.sample_video \\
@@ -30,7 +33,7 @@ from scail_tpu_torch.data.video import (
     save_multi_video_grid_and_mp4,
     smpl_downsample,
 )
-from scail_tpu_torch.diffusion.samplers import RFSampler
+from scail_tpu_torch.diffusion.samplers import RFSampler, RFSamplerLong, make_tile_indices
 from scail_tpu_torch.engine import VideoDiffusionEngine
 from scail_tpu_torch.ops.resize import resize_bilinear_host
 
@@ -145,7 +148,7 @@ def sampling_main(args, model_config):
     'seconds', 'phases' (prepare/sample/decode/save seconds), 'outputs',
     'frames', 'finite'}."""
     engine = VideoDiffusionEngine(model_config, args, device=args.device)
-    if not isinstance(engine.sampler, RFSampler):
+    if not isinstance(engine.sampler, RFSampler):  # RFSamplerLong is one
         raise NotImplementedError(f"sampler {type(engine.sampler).__name__} is not ported")
     if getattr(args, "load", None) and os.path.isdir(str(args.load)):
         engine.load_checkpoint(str(args.load))
@@ -178,8 +181,17 @@ def sampling_main(args, model_config):
         with open(os.path.join(save_dir, "text.txt"), "w") as f:
             f.write(meta["prompt"])
 
+        tile_indices = None
+        if isinstance(engine.sampler, RFSamplerLong):
+            tile_indices = make_tile_indices(shape[0], int(getattr(args, "long_tile", 21)),
+                                             int(getattr(args, "long_overlap", 8)))
+            smpl = c["concat_smpl_render"]
+            smpl_tiled = torch.stack([smpl[:, t] for t in tile_indices], dim=1)
+            c["smpl_tiled"] = smpl_tiled
+            uc["smpl_tiled"] = smpl_tiled
         gen = torch.Generator(device=engine.device).manual_seed(args.seed + cnt)
-        samples_z = engine.sample(gen, c, uc, batch_size=1, shape=tuple(shape))
+        samples_z = engine.sample(gen, c, uc, batch_size=1, shape=tuple(shape),
+                                  tile_indices=tile_indices)
         marks.append(clock())
         samples_x = engine.decode_first_stage(samples_z)
         samples = np.clip((samples_x.float().cpu().numpy() + 1.0) / 2.0, 0.0, 1.0)

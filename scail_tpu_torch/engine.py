@@ -143,9 +143,11 @@ class VideoDiffusionEngine:
 
     @torch.inference_mode()
     def sample(self, generator: torch.Generator, cond: Dict, uc: Optional[Dict] = None,
-               batch_size: int = 1, shape: Tuple[int, int, int, int] = None, prefix=None):
+               batch_size: int = 1, shape: Tuple[int, int, int, int] = None, prefix=None,
+               tile_indices=None):
         """Noise from `generator` (on the engine's device), then the sampler's
-        denoise loop; returns the latent in the DiT's compute dtype."""
+        denoise loop (`tile_indices` goes to a tiled sampler, RFSamplerLong);
+        returns the latent in the DiT's compute dtype."""
         randn = torch.randn((batch_size, *shape), generator=generator, device=self.device,
                             dtype=torch.float32)
         if prefix is not None:
@@ -155,7 +157,8 @@ class VideoDiffusionEngine:
         def denoise_fn(x, sigma, c, cfg_scale=None, **dkw):
             return self.denoiser(net, x, sigma, c, **dkw)
 
-        samples = self.sampler(denoise_fn, randn, cond, uc=uc)
+        sampler_kw = {} if tile_indices is None else {"tile_indices": tile_indices}
+        samples = self.sampler(denoise_fn, randn, cond, uc=uc, **sampler_kw)
         return samples.to(self.network.config.compute_dtype)
 
     # ------------------------------------------------------------------

@@ -6,7 +6,10 @@ sequence, 3-regime 3D rotary, AdaLN blocks with a shared projection plus
 per-layer tables, full-width q/k RMS norm, flash self-attention with the
 rotary fused into the kernel for q, the summed text + CLIP dual
 cross-attention kernel, a GELU(tanh) MLP, and the AdaLN final layer with
-unpatchify of the video tokens.
+unpatchify of the video tokens.  The three AdaLN LayerNorm-modulate passes
+run the fused AdaLN kernel and the interleaved rotary of q/k the rotary
+kernel (ops/fused_norms.py, K9 and K10) under the impl the layer's other
+kernels take.
 
 Single device.  attn_impl='sta' keeps the layer stack in the sliding-tile
 order of ops/sta.py (one gather before the layers, one after) with q and k
@@ -36,8 +39,9 @@ from scail_tpu_torch.models.common import (container, dense, gelu_exact, gelu_ta
                                            parameter, random_init_, silu, timestep_embedding)
 from scail_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
 from scail_tpu_torch.ops.attention import attention, attention_int8, dual_cross_attention
-from scail_tpu_torch.ops.norms import layer_norm, modulate, rms_norm
-from scail_tpu_torch.ops.rotary import apply_rotary, build_scail_rope
+from scail_tpu_torch.ops.fused_norms import adaln_layer_norm, apply_rotary_fused
+from scail_tpu_torch.ops.norms import layer_norm, rms_norm
+from scail_tpu_torch.ops.rotary import build_scail_rope
 from scail_tpu_torch.ops.sta import sta_attention, sta_plan
 from scail_tpu_torch.utils.registry import register
 
@@ -107,6 +111,16 @@ class DiTConfig:
     @property
     def compute_dtype(self):
         return DTYPES[self.dtype]
+
+    @property
+    def kernel_impl(self) -> str:
+        """The impl of the layers' kernels ('auto' | 'xla'): under 'sta' the
+        dense fallback and the cross-attention take sta_impl, under
+        'pallas_int8' the int8 attention and the cross-attention quant_impl
+        (the JAX cross_impl is 'auto' for both); the AdaLN and rotary
+        kernels follow."""
+        return {"sta": self.sta_impl, "pallas_int8": self.quant_impl}.get(self.attn_impl,
+                                                                          self.attn_impl)
 
     @staticmethod
     def from_network_config(params: dict, **overrides) -> "DiTConfig":
@@ -382,22 +396,20 @@ class DiT(nn.Module):
         else:
             fmod = lin(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
         # only the video tokens are unpatchified: project just those rows
-        out = layer_norm(hidden[:, video_rows], eps=eps)
-        out = lin(fl.linear, modulate(out, fmod[:, 0:1], fmod[:, 1:2]))
+        out = adaln_layer_norm(hidden[:, video_rows], fmod[:, 0:1], fmod[:, 1:2], eps=eps,
+                               impl=cfg.kernel_impl)
+        out = lin(fl.linear, out)
         return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
 
     def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos):
         """One DiT block: AdaLN self-attention (q roped in the kernel, or q
-        and k roped in torch for sliding-tile and int8 attention), the dual
-        text + CLIP cross-attention, and the AdaLN GELU-tanh MLP."""
+        and k roped by the rotary kernel for sliding-tile and int8
+        attention), the dual text + CLIP cross-attention, and the AdaLN
+        GELU-tanh MLP."""
         cfg = self.config
         eps = cfg.layernorm_epsilon
         lin = functools.partial(dense, impl=cfg.quant_impl)
-        # under 'sta' the dense fallback and the cross-attention take
-        # sta_impl, under 'pallas_int8' the int8 attention and the
-        # cross-attention quant_impl (the JAX cross_impl is 'auto' for both)
-        impl = {"sta": cfg.sta_impl, "pallas_int8": cfg.quant_impl}.get(cfg.attn_impl,
-                                                                        cfg.attn_impl)
+        impl = cfg.kernel_impl
 
         def heads(t):
             return t.unflatten(-1, (cfg.num_heads, -1))
@@ -411,21 +423,23 @@ class DiT(nn.Module):
             mod = lin(blk.adaln_mlp, silu(emb)).reshape(emb.shape[0], 6, -1)
         s_msa, sc_msa, g_msa, s_mlp, sc_mlp, g_mlp = mod.unsqueeze(2).unbind(1)
 
-        # self attention: q roped inside the kernel, k in plain torch; or
-        # both roped in torch (in q's dtype, as JAX _rope_per_head) for STA
-        # and int8 attention (JAX ropes in XLA when the rope is not fused)
-        ai = modulate(layer_norm(hidden, eps=eps), s_msa, sc_msa)
+        def rope(t):
+            # q and k roped outside attention, in q's dtype (JAX _rope_per_head)
+            return apply_rotary_fused(heads(t), attn_pos.cos, attn_pos.sin,
+                                      interleaved=cfg.interleaved_rope, impl=impl)
+
+        # self attention: q roped inside the flash kernel and k by the rotary
+        # kernel; or both roped before STA and int8 attention (JAX ropes in
+        # XLA when the rope is not fused)
+        ai = adaln_layer_norm(hidden, s_msa, sc_msa, eps=eps, impl=impl)
         q, k, v = lin(blk.qkv, ai).chunk(3, dim=-1)
         if cfg.qk_ln:
             q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
         if isinstance(attn_pos, _StaLayout):
-            cos, sin = attn_pos.cos[:, None, :], attn_pos.sin[:, None, :]
-            q, k = (apply_rotary(heads(t), cos, sin, cfg.interleaved_rope) for t in (q, k))
-            attn = sta_attention(q, k, heads(v), pre_tiled=True, impl=impl, **attn_pos.kwargs)
+            attn = sta_attention(rope(q), rope(k), heads(v), pre_tiled=True, impl=impl,
+                                 **attn_pos.kwargs)
         elif cfg.attn_impl == "pallas_int8":
-            cos, sin = attn_pos.cos[:, None, :], attn_pos.sin[:, None, :]
-            q, k = (apply_rotary(heads(t), cos, sin, cfg.interleaved_rope) for t in (q, k))
-            attn = attention_int8(q, k, heads(v), impl=impl)
+            attn = attention_int8(rope(q), rope(k), heads(v), impl=impl)
         else:
             attn = attention(heads(q), heads(k), heads(v), impl=impl,
                              rope=(attn_pos.cos, attn_pos.sin),
@@ -448,7 +462,7 @@ class DiT(nn.Module):
         hidden = hidden + lin(blk.cross_out, cross.flatten(2))
 
         # MLP
-        mi = modulate(layer_norm(hidden, eps=eps), s_mlp, sc_mlp)
+        mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, impl=impl)
         return hidden + g_mlp * lin(blk.mlp_out, gelu_tanh(lin(blk.mlp_in, mi)))
 
 

@@ -13,6 +13,9 @@ JAX package.  Four kernel wrappers:
   * `flash_attention_int8` -- flash self-attention with q and k quantized
     per (row, head) to int8 in torch and QK^T in int32 on the tensor cores
     (csrc/flash_attention_int8.cu).
+The rotary of k before the flash kernel, and of q in its backward, is the
+interleaved-rotary kernel of ops/fused_norms.py (K10) where the layout is
+interleaved.
 
 Each wrapper runs its plain version when given CPU tensors and launches its
 kernel (or raises) for CUDA tensors; there is no fallback from a CUDA tensor
@@ -28,19 +31,20 @@ import math
 
 import torch
 
-from scail_tpu_torch.ops import cuda_build
+from scail_tpu_torch.ops import cuda_build, fused_norms
 from scail_tpu_torch.ops.rotary import apply_rotary, rotate_half
 
 _LOG2E = math.log2(math.e)
 _LN2 = math.log(2.0)
 
 # kernel launches by wrapper (plain ints; reset with reset_launch_counts); the
-# sliding-tile wrappers of ops/sta.py count here too
+# sliding-tile wrappers of ops/sta.py and the AdaLN and rotary wrappers of
+# ops/fused_norms.py count here too
 LAUNCHES = {"flash_attention": 0, "flash_attention_rope": 0, "dual_cross_attention": 0,
             "flash_attention_bwd_dq": 0, "flash_attention_bwd_dkv": 0,
             "sta_attention_fwd": 0, "sta_attention_fwd_lse": 0,
             "sta_attention_bwd_dq": 0, "sta_attention_bwd_dkv": 0,
-            "flash_attention_int8": 0}
+            "flash_attention_int8": 0, "adaln_layer_norm": 0, "rotary": 0}
 
 
 def reset_launch_counts() -> None:
@@ -445,8 +449,8 @@ def rope_transpose(g, cos, sin, interleaved: bool = True):
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with an optional rotary on q and k (JAX
     _flash_attention_rope_bnsd / _flash_attention_bnsd): the forward ropes k
-    in torch and q inside the kernel; the backward ropes q in torch, runs the
-    dq and dk/dv kernels and pulls dq and dk back through the transposed
+    (K10) and q inside the flash kernel; the backward ropes q (K10), runs
+    the dq and dk/dv kernels and pulls dq and dk back through the transposed
     rotary.  The tables get no gradient."""
 
     @staticmethod
@@ -454,7 +458,7 @@ class _FlashAttention(torch.autograd.Function):
         rope = None
         if cos is not None:
             rope = (cos, sin)
-            k = apply_rotary(k, cos[:, None, :], sin[:, None, :], interleaved)
+            k = fused_norms.apply_rotary_fused(k, cos, sin, interleaved=interleaved)
         out, lse = flash_attention(q, k, v, scale=scale, rope=rope, rope_interleaved=interleaved)
         ctx.save_for_backward(q, k, v, out, lse, cos, sin)
         ctx.scale, ctx.interleaved = scale, interleaved
@@ -465,7 +469,7 @@ class _FlashAttention(torch.autograd.Function):
         q, k_roped, v, out, lse, cos, sin = ctx.saved_tensors
         il = ctx.interleaved
         if cos is not None:
-            q = apply_rotary(q, cos[:, None, :], sin[:, None, :], il)
+            q = fused_norms.apply_rotary_fused(q, cos, sin, interleaved=il)
         dq, dk, dv = flash_attention_bwd(q, k_roped, v, out, lse, do.contiguous(),
                                          scale=ctx.scale)
         if cos is not None:

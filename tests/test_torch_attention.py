@@ -116,7 +116,8 @@ def test_wrappers_take_plain_version_on_cpu_and_count_nothing(rng):
                               "dual_cross_attention": 0, "flash_attention_bwd_dq": 0,
                               "flash_attention_bwd_dkv": 0, "sta_attention_fwd": 0,
                               "sta_attention_fwd_lse": 0, "sta_attention_bwd_dq": 0,
-                              "sta_attention_bwd_dkv": 0, "flash_attention_int8": 0}
+                              "sta_attention_bwd_dkv": 0, "flash_attention_int8": 0,
+                              "adaln_layer_norm": 0, "rotary": 0}
 
 
 def test_error_limits_accept_bf16_rounding_and_reject_a_wrong_kv_walk():

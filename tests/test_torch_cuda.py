@@ -266,3 +266,82 @@ def test_attention_int8_gradients_on_the_card_match_the_plain_path(cuda):
         grads.append([t.grad for t in ts])
     for g, want in zip(*grads):
         _assert_close(g, want.to(g.device))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("mod_dtype", [torch.bfloat16, torch.float32])
+@pytest.mark.parametrize("d", [64, 1536])
+def test_adaln_layer_norm_kernel_matches_plain(cuda, mod_dtype, d):
+    """K9 at s = 150 (no block multiple), x rows on a wider stride (the final
+    layer's row gather is a strided view), shift/scale strided rows of a
+    (b, 6, d) table as the DiT passes them, bf16 or f32."""
+    from scail_tpu_torch.ops import fused_norms as F
+
+    x = _rnd(cuda, 2, 150, 2 * d)[..., d:]
+    shift, scale = _rnd(cuda, 2, 6, d).to(mod_dtype).unsqueeze(2).unbind(1)[:2]
+    before = A.LAUNCHES["adaln_layer_norm"]
+    got = F.adaln_layer_norm_kernel(x, shift, scale, eps=1e-6)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["adaln_layer_norm"] == before + 1
+    want = F.adaln_layer_norm_plain(x, shift, scale, eps=1e-6)
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    err = F.adaln_error_vs_plain(got, want)
+    assert err["ok"], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("layout", ["ragged", "qkv_view"])
+def test_rotary_kernel_is_bit_exact_against_plain(cuda, layout):
+    """K10 at s = 150, d = 64, 3 heads, and on the q and k column slices of a
+    (2, 150, 3 * 3 * 128) qkv projection with SCAIL-like interleaved tables."""
+    from scail_tpu_torch.ops import fused_norms as F
+
+    d = 64 if layout == "ragged" else 128
+    ang = torch.randn(150, d // 2, generator=cuda, device="cuda").repeat_interleave(2, -1)
+    cos, sin = ang.cos(), ang.sin()
+    if layout == "ragged":
+        views = [_rnd(cuda, 2, 150, 3, d)]
+    else:
+        qkv = _rnd(cuda, 2, 150, 3 * 3 * d)
+        views = [t.unflatten(-1, (3, d)) for t in qkv.chunk(3, dim=-1)[:2]]
+    for x in views:
+        before = A.LAUNCHES["rotary"]
+        got = F.rotary_kernel(x, cos, sin)
+        torch.cuda.synchronize()
+        assert A.LAUNCHES["rotary"] == before + 1
+        assert torch.equal(got, F.apply_rotary_fused_plain(x, cos, sin))
+
+
+@pytest.mark.cuda
+def test_fused_norm_gradients_on_the_card_match_the_cpu(cuda):
+    """The K9 and K10 autograd Functions on the card against the same calls on
+    CPU copies of the same bf16 inputs (plain versions): the backwards are
+    the same torch code, so only the forwards' kernels differ."""
+    from scail_tpu_torch.ops import fused_norms as F
+
+    x, w = _rnd(cuda, 1, 150, 2, 128), _rnd(cuda, 1, 150, 2 * 128)
+    mod = _rnd(cuda, 1, 6, 2 * 128)
+    ang = torch.randn(150, 64, generator=cuda, device="cuda").repeat_interleave(2, -1)
+    grads = []
+    for device in ("cuda", "cpu"):
+        xi, mi = x.detach().to(device).requires_grad_(), mod.detach().to(device).requires_grad_()
+        shift, scale = mi.unsqueeze(2).unbind(1)[:2]
+        y = F.apply_rotary_fused(xi, ang.cos().to(device), ang.sin().to(device)).flatten(2)
+        y = F.adaln_layer_norm(y, shift, scale, eps=1e-6)
+        (y.float() * w.to(device).float()).sum().backward()
+        grads.append([xi.grad, mi.grad])
+    for g, want in zip(*grads):
+        assert g.dtype == torch.bfloat16
+        err = ((g.float().cpu() - want.float()).norm() / want.float().norm()).item()
+        assert err < 1e-2, err
+
+
+@pytest.mark.cuda
+def test_fused_norm_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    from scail_tpu_torch.ops import fused_norms as F
+
+    x = _rnd(cuda, 1, 4, 36)  # d not a multiple of 8
+    with pytest.raises(ValueError):
+        F.adaln_layer_norm_kernel(x, x[:, :1], x[:, :1])
+    with pytest.raises(TypeError):
+        F.rotary_kernel(x.float()[..., None, :], torch.ones(4, 36), torch.ones(4, 36))

@@ -3,9 +3,13 @@
 * The port's RFSampler + Denoiser + VanillaCFG + DiT, with JAX-initialised
   weights bridged by convert/from_jax.py and the same inputs, reproduce the
   committed CPU `dense` fingerprint (goldens/fingerprints_cpu.json) at rtol
-  1e-4, compared with scripts/fingerprints.py's own `compare`.
+  1e-4, compared with scripts/fingerprints.py's own `compare`; the port's
+  RFSamplerLong reproduces the `long_tile` fingerprint the same way, its
+  `long_step` matches the JAX one at 1e-4 and `make_tile_indices` the JAX
+  function.
 * The port's CLI answers a request on examples_synth/001 with --device cpu at
-  a tiny model built here, and writes its clip.
+  a tiny model built here, and writes its clip, with RFSampler and with the
+  tiled RFSamplerLong.
 * Guards: the port never imports jax or the JAX package (its modules, its
   sources, and its train CLI run in a fresh interpreter); the reference
   YAML builds the port's classes through the port's registry and the JAX
@@ -28,10 +32,13 @@ import pytest
 import torch
 import yaml
 
+from scail_tpu.diffusion.samplers import RFSamplerLong as JaxRFSamplerLong
+from scail_tpu.diffusion.samplers import make_tile_indices as jax_make_tile_indices
 from scail_tpu.models.dit import DiTConfig as JaxDiTConfig
-from scail_tpu.models.dit import init_dit_params
+from scail_tpu.models.dit import dit_forward, init_dit_params
 from scail_tpu_torch.convert.from_jax import dit_state_dict_from_jax
 from scail_tpu_torch.data.video import load_video_frames, save_multi_video_grid_and_mp4
+from scail_tpu_torch.diffusion.samplers import make_tile_indices
 from scail_tpu_torch.models.dit import DiT, DiTConfig
 from scail_tpu_torch.utils.registry import instantiate_from_config
 
@@ -51,46 +58,47 @@ DENOISER = dict(
     scaling_config={"target": "sgm.modules.diffusionmodules.denoiser_scaling.RFScaling"})
 
 
-def _fingerprint_inputs(**cfg_kw):
-    """The tiny geometry of scripts/fingerprints.py, built with the same JAX
-    keys: weights, conditioning and the starting latent, as numpy, and the
-    port's DiTConfig (cfg_kw: the path's attention options)."""
-    kw = dict(hidden_size=64, num_layers=2, num_heads=2, inner_hidden_size=128,
+# the tiny DiT of scripts/fingerprints.py, and its long-tile geometry: tiles
+# of 3 latent frames overlapping by 1
+FP_DIT = dict(hidden_size=64, num_layers=2, num_heads=2, inner_hidden_size=128,
               time_embed_dim=64, text_dim=32, clip_dim=16, share_adaln=True,
               use_i2v_clip=True, dtype="float32")
-    T, H, W = 3, 8, 8
+TINY_TILE, TINY_OVERLAP = 3, 1
+
+
+def _fingerprint_inputs(kind="step", **cfg_kw):
+    """The tiny geometry of scripts/fingerprints.py for a path of `kind`
+    ('step': 9 frames, 'long': 25 frames in tiles), built with the same JAX
+    keys: weights, conditioning and the starting latent, as numpy, and the
+    port's DiTConfig (cfg_kw: the path's attention options)."""
+    T, H, W = (7 if kind == "long" else 3), 8, 8
     key = jax.random.PRNGKey(0)
-    params = init_dit_params(key, JaxDiTConfig(**kw, attn_impl="xla"))
+    params = init_dit_params(key, JaxDiTConfig(**FP_DIT, attn_impl="xla"))
     ks = jax.random.split(key, 8)
     cond = {
         "crossattn": jax.random.normal(ks[1], (1, 16, 32), jnp.float32),
         "ref_concat": jax.random.normal(ks[2], (1, 1, 16, H, W), jnp.float32),
         "image_clip_features": jax.random.normal(ks[3], (1, 9, 16), jnp.float32),
-        "concat_smpl_render": jax.random.normal(ks[4], (1, T, 16, H // 2, W // 2),
-                                                jnp.float32),
     }
+    if kind == "long":
+        n = len(jax_make_tile_indices(T, TINY_TILE, TINY_OVERLAP))
+        cond["smpl_tiled"] = jax.random.normal(
+            ks[4], (1, n, TINY_TILE, 16, H // 2, W // 2), jnp.float32)
+    else:
+        cond["concat_smpl_render"] = jax.random.normal(ks[4], (1, T, 16, H // 2, W // 2),
+                                                       jnp.float32)
     x0 = jax.random.normal(jax.random.PRNGKey(7), (1, T, 16, H, W), jnp.float32)
     to_np = lambda t: np.array(t)  # noqa: E731  (writable copies for torch)
-    return (jax.tree.map(to_np, params), DiTConfig(**kw, **cfg_kw),
+    return (jax.tree.map(to_np, params), DiTConfig(**FP_DIT, **cfg_kw),
             {k: to_np(v) for k, v in cond.items()}, to_np(x0))
 
 
-def port_fingerprint(name, **cfg_kw):
-    """Run the port's RFSampler + Denoiser + VanillaCFG + DiT for the 4 steps
-    of the CPU fingerprint `name` and hold it against the committed golden at
-    rtol 1e-4 (scripts/fingerprints.py's own `compare`)."""
-    import fingerprints as fp
-
-    params, cfg, cond_np, x0 = _fingerprint_inputs(**cfg_kw)
+def _port_denoise_fn(params, cfg):
+    """The port's Denoiser over its DiT with the bridged weights."""
     model = DiT(cfg)
     model.load_state_dict(dit_state_dict_from_jax(params, cfg))
-    sampler = instantiate_from_config(
-        {"target": "sgm.modules.diffusionmodules.sampling.RFSampler", "params": SAMPLER})
     denoiser = instantiate_from_config(
         {"target": "sgm.modules.diffusionmodules.denoiser.Denoiser", "params": DENOISER})
-    cond = {k: torch.from_numpy(v) for k, v in cond_np.items()}
-    uc = dict(cond, crossattn=torch.zeros_like(cond["crossattn"]))
-    merged = sampler.guider.prepare_cond(cond, uc)
 
     def net(x, c_noise, c, **kw):
         return model(x, c_noise, c["crossattn"], ref_concat=c["ref_concat"],
@@ -100,14 +108,42 @@ def port_fingerprint(name, **cfg_kw):
     def denoise_fn(x, sigma, c, cfg_scale=None, **kw):
         return denoiser(net, x, sigma, c)
 
+    return denoise_fn
+
+
+def port_fingerprint(name, **cfg_kw):
+    """Run the port's sampler + Denoiser + VanillaCFG + DiT for the steps of
+    the CPU fingerprint `name` (RFSampler steps, or RFSamplerLong's tiled
+    steps for a 'long' path) and hold it against the committed golden at rtol
+    1e-4 (scripts/fingerprints.py's own `compare`)."""
+    import fingerprints as fp
+
+    geom = fp.TINY_GEOMS[name]
+    params, cfg, cond_np, x0 = _fingerprint_inputs(geom["kind"], **cfg_kw)
+    denoise_fn = _port_denoise_fn(params, cfg)
+    target = "RFSamplerLong" if geom["kind"] == "long" else "RFSampler"
+    sampler = instantiate_from_config(
+        {"target": f"sgm.modules.diffusionmodules.sampling.{target}", "params": SAMPLER})
+    cond = {k: torch.from_numpy(v) for k, v in cond_np.items()}
+    uc = dict(cond, crossattn=torch.zeros_like(cond["crossattn"]))
+    if geom["kind"] == "long":
+        tiles = make_tile_indices(x0.shape[1], TINY_TILE, TINY_OVERLAP)
+
+        def step(x, sigma, next_sigma):
+            return sampler.long_step(denoise_fn, x, (sigma, next_sigma), tiles, cond, uc)
+    else:
+        merged = sampler.guider.prepare_cond(cond, uc)
+
+        def step(x, sigma, next_sigma):
+            return sampler.step(denoise_fn, x, sigma, next_sigma, merged, sampler.guider.scale)
+
     sigmas = sampler.sigma_schedule(x0.shape)
     x = torch.from_numpy(x0)
     prev = x0
     norms, deltas = [], []
     with torch.no_grad():
-        for i in range(4):
-            x = sampler.step(denoise_fn, x, float(sigmas[i]), float(sigmas[i + 1]), merged,
-                             sampler.guider.scale)
+        for i in range(geom["steps"]):
+            x = step(x, float(sigmas[i]), float(sigmas[i + 1]))
             xa = x.numpy().astype(np.float32)
             norms.append(round(float(np.linalg.norm(xa)), 4))
             deltas.append(round(float(np.linalg.norm(xa - prev)), 5))
@@ -126,7 +162,63 @@ def test_port_reproduces_dense_cpu_fingerprint():
     port_fingerprint("dense")
 
 
-def _tiny_cli_yaml(tmp_path):
+def test_port_reproduces_long_tile_cpu_fingerprint():
+    port_fingerprint("long_tile")
+
+
+@pytest.mark.parametrize("tile, overlap", [(3, 1), (21, 8), (5, 4), (8, 3)])
+def test_make_tile_indices_matches_jax(tile, overlap):
+    for frames in (1, 3, 7, 13, 20, 21, 22, 25, 41, 60, 61, 100):
+        assert make_tile_indices(frames, tile, overlap) == \
+            jax_make_tile_indices(frames, tile, overlap), frames
+    # the long-clip request: 161 frames -> 41 latent frames in three tiles
+    assert [(t[0], t[-1]) for t in make_tile_indices(41, 21, 8)] == [(0, 20), (13, 33), (20, 40)]
+    with pytest.raises(ValueError):
+        make_tile_indices(41, tile, tile)
+
+
+def test_long_step_matches_jax():
+    """One tiled step (three tiles, pairs (0, 1) and (1, 2): the middle tile
+    denoised twice) of the port's RFSamplerLong on the tiny DiT with bridged
+    weights against the JAX long_step on the same inputs, at 1e-4."""
+    from scail_tpu.diffusion.denoiser import Denoiser as JaxDenoiser
+    from scail_tpu_torch.diffusion.samplers import RFSamplerLong
+
+    params, cfg, cond_np, x0 = _fingerprint_inputs("long")
+    tiles = make_tile_indices(x0.shape[1], TINY_TILE, TINY_OVERLAP)
+    assert len(tiles) == 3
+    jcfg = JaxDiTConfig(**FP_DIT, attn_impl="xla")
+    jparams = jax.tree.map(jnp.asarray, params)
+    jden = JaxDenoiser(**DENOISER)
+
+    def jnet(x, c_noise, c, **kw):
+        return dit_forward(jparams, jcfg, x, c_noise, c["crossattn"], ref_concat=c["ref_concat"],
+                           concat_smpl_render=c["concat_smpl_render"],
+                           image_clip_features=c["image_clip_features"])
+
+    jcond = {k: jnp.asarray(v) for k, v in cond_np.items()}
+    juc = dict(jcond, crossattn=jnp.zeros_like(jcond["crossattn"]))
+    jsampler = JaxRFSamplerLong(**SAMPLER)
+    pair = np.asarray(jsampler.sigma_schedule(x0.shape)[10:12], np.float32)
+    want = jax.jit(lambda x: jsampler.long_step(
+        lambda x, s, c, cfg_scale=None, **kw: jden(jnet, x, s, c), x, jnp.asarray(pair),
+        tuple(tuple(t) for t in tiles), jcond, juc))(jnp.asarray(x0))
+
+    cond = {k: torch.from_numpy(v) for k, v in cond_np.items()}
+    uc = dict(cond, crossattn=torch.zeros_like(cond["crossattn"]))
+    sampler = RFSamplerLong(**SAMPLER)
+    with torch.no_grad():
+        got = sampler.long_step(_port_denoise_fn(params, cfg), torch.from_numpy(x0),
+                                (float(pair[0]), float(pair[1])), tiles, cond, uc)
+    assert got.dtype == torch.float32 and got.shape == x0.shape
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-4, atol=1e-4)
+    with pytest.raises(ValueError, match="two tiles"):
+        sampler.long_step(None, torch.from_numpy(x0), (1.0, 0.9), tiles[:1], cond, uc)
+
+
+def _tiny_cli_yaml(tmp_path, long=False):
+    """The tiny model config as a CLI YAML; `long` swaps in RFSamplerLong
+    with tiles of 2 latent frames overlapping by 1 (YAML args)."""
     from scail_tpu.testing import tiny_model_config
 
     mc = tiny_model_config()
@@ -137,13 +229,20 @@ def _tiny_cli_yaml(tmp_path):
                         "target": "sgm.modules.encoders.umt5.T5EncoderModel",
                         "params": {"max_length": 12}}]}}
     mc["i2v_clip_config"] = {"target": "sgm.modules.encoders.clip.CLIPModel", "params": {}}
-    path = tmp_path / "tiny.yaml"
-    path.write_text(yaml.safe_dump({"model": mc, "args": {
-        "bf16": False, "output_dir": str(tmp_path / "out")}}))
+    args = {"bf16": False, "output_dir": str(tmp_path / "out")}
+    if long:
+        mc["sampler_config"]["target"] = "sgm.modules.diffusionmodules.sampling.RFSamplerLong"
+        args.update(long_tile=2, long_overlap=1)
+    path = tmp_path / ("tiny_long.yaml" if long else "tiny.yaml")
+    path.write_text(yaml.safe_dump({"model": mc, "args": args}))
     return str(path)
 
 
-def test_cli_answers_a_request_on_cpu(tmp_path, monkeypatch):
+def _answer_tiny_request(tmp_path, monkeypatch, long=False):
+    """The port's sampling CLI on examples_synth/001 (9 frames, 3 latent
+    frames) at 32x64, 2 steps, --device cpu, with the YAML's text/CLIP/VAE
+    wrappers at toy widths.  Returns (records, the DiT forwards' (batch,
+    latent frames))."""
     import scail_tpu_torch.cli.sample_video as sv
     from scail_tpu_torch.models.clip_vit import ClipVisionConfig
     from scail_tpu_torch.models.umt5 import UMT5Config
@@ -166,11 +265,19 @@ def test_cli_answers_a_request_on_cpu(tmp_path, monkeypatch):
                                                    num_res_blocks=1, dtype="float32"))
         return eng
 
+    forwards = []
+    real_forward = DiT.forward
+
+    def forward(self, x, *a, **kw):
+        forwards.append((x.shape[0], x.shape[1]))
+        return real_forward(self, x, *a, **kw)
+
     monkeypatch.setattr(sv, "VideoDiffusionEngine", tiny_engine)
+    monkeypatch.setattr(DiT, "forward", forward)
     prompts = tmp_path / "prompts.txt"
     prompts.write_text(f"a character dancing@@{os.path.join(ROOT, 'examples_synth', '001')}\n")
     port_attention.reset_launch_counts()
-    records = sv.main(["--base", _tiny_cli_yaml(tmp_path), "--input-type", "txt",
+    records = sv.main(["--base", _tiny_cli_yaml(tmp_path, long), "--input-type", "txt",
                        "--input-file", str(prompts), "--sampling-steps", "2",
                        "--image-size", "32", "64", "--device", "cpu"])
     assert len(records) == 1
@@ -181,6 +288,20 @@ def test_cli_answers_a_request_on_cpu(tmp_path, monkeypatch):
     assert os.path.basename(out) == "001_output_000000.mp4"
     assert load_video_frames(out)[0].shape == (9, 32, 64, 3)
     assert all(v == 0 for v in port_attention.LAUNCHES.values())
+    return records, forwards
+
+
+def test_cli_answers_a_request_on_cpu(tmp_path, monkeypatch):
+    _, forwards = _answer_tiny_request(tmp_path, monkeypatch)
+    assert forwards == [(2, 3)] * 2  # one CFG-batch forward of the whole latent per step
+
+
+def test_cli_answers_a_long_clip_request_on_cpu(tmp_path, monkeypatch):
+    """RFSamplerLong through the CLI (the counterpart of tests/test_cli.py's
+    long-clip run): 3 latent frames in tiles [0, 1] and [1, 2], so each of
+    the 2 steps denoises both tiles of the one pair at CFG batch 2."""
+    _, forwards = _answer_tiny_request(tmp_path, monkeypatch, long=True)
+    assert forwards == [(2, 2)] * 4
 
 
 def test_clip_writer_round_trips_frames(tmp_path):
@@ -231,6 +352,8 @@ def test_profiler_groups_kernels_and_needs_cuda(tmp_path):
              "void scail::sta_fwd_kernel<true>(__nv_bfloat16 const": "sta_attention",
              "void scail::sta_bwd_dq_kernel(__nv_bfloat16 const*,": "sta_attention_bwd",
              "scail::dual_cross_kernel(__nv_bfloat16 const*, __nv_": "dual_cross_attention",
+             "void scail::adaln_ln_kernel<6, __nv_bfloat16>(__nv_b": "adaln_layer_norm",
+             "scail::rotary_kernel(__nv_bfloat16 const*, float con": "rotary",
              "sm80_xmma_fprop_implicit_gemm_bf16bf16_bf16f32_f32_n": "conv",
              "nvjet_tst_192x192_64x4_1x2_h_bz_coopB_bias_TNN": "gemm",
              "void cudnn::engines_precompiled::nchwToNhwcKernel<__": "copy",
@@ -257,7 +380,8 @@ def test_port_never_imports_jax():
         "for n in names: importlib.import_module(n)\n"
         "assert 'scail_tpu_torch.cli.sample_video' in names, names\n"
         "assert 'scail_tpu_torch.cli.train' in names, names\n"
-        "for m in ('ops.quant', 'cli.bench_14b_quant', 'cli.bench_14b_e2e'):\n"
+        "for m in ('ops.quant', 'ops.fused_norms', 'cli.bench_14b_quant', "
+        "'cli.bench_14b_e2e'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -277,7 +401,8 @@ def test_port_sources_never_import_jax_or_the_jax_package():
     for d, _, names in os.walk(os.path.join(ROOT, "scail_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30
-    for new in ("ops/quant.py", "cli/bench_14b_quant.py", "cli/bench_14b_e2e.py"):
+    for new in ("ops/quant.py", "ops/fused_norms.py", "cli/bench_14b_quant.py",
+                "cli/bench_14b_e2e.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}
