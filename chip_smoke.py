@@ -372,7 +372,10 @@ def _norm_kernels(gen, rnd):
     """K9 and K10 against their plain versions: a ragged small case (s 150,
     d 64, x rows on a wider stride; K10 with 3 heads), then K9 at each of
     NORM_SHAPES with bf16 and f32 shift/scale (strided rows of a (2, 6, d)
-    table, as the DiT passes them) and K10 on the q and k views of each of
+    table, as the DiT passes them) in its one-rounding mode (the Pallas
+    kernel's) and, bf16 only, at dit_forward's roundings (round_ln, the mode
+    the DiT runs and the one timed; the other's time is logged beside it),
+    and K10 on the q and k views of each of
     ROTARY_SHAPES' qkv tensors with SCAIL's tables; times of kernel, plain
     version and the library yardstick (K9: F.layer_norm with weight 1 + scale
     and bias shift, one call per batch row, the same function in b calls; K10:
@@ -386,11 +389,13 @@ def _norm_kernels(gen, rnd):
 
     eps = 1e-6
     x = rnd(2, 150, 2 * 64)[..., 64:]
-    for mdt in (torch.bfloat16, torch.float32):
+    for mdt, round_ln in ((torch.bfloat16, False), (torch.float32, False),
+                          (torch.bfloat16, True)):
         shift, scale = rnd(2, 6, 64).to(mdt).unsqueeze(2).unbind(1)[:2]
-        _norm_compare(f"adaln small (2,150,64) strided, {str(mdt)[6:]} shift/scale",
-                      FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps),
-                      FN.adaln_layer_norm_plain(x, shift, scale, eps=eps))
+        _norm_compare(f"adaln small (2,150,64) strided, {str(mdt)[6:]} shift/scale"
+                      f"{', round_ln' if round_ln else ''}",
+                      FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps, round_ln=round_ln),
+                      FN.adaln_layer_norm_plain(x, shift, scale, eps=eps, round_ln=round_ln))
     ang = torch.randn(150, 32, generator=gen, device="cuda").repeat_interleave(2, -1)
     xr = rnd(2, 150, 3 * 3 * 64)[..., 64:4 * 64].unflatten(-1, (3, 64))
     _rotary_compare("rotary small (2,150,3,64) strided",
@@ -402,24 +407,32 @@ def _norm_kernels(gen, rnd):
         x = rnd(2, s, d)
         mod = rnd(2, 6, d)
         err = 0.0
-        for mdt in (torch.bfloat16, torch.float32):
+        for mdt, round_ln in ((torch.bfloat16, False), (torch.float32, False),
+                              (torch.bfloat16, True)):
             shift, scale = mod.to(mdt).unsqueeze(2).unbind(1)[:2]
-            out = FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps)
+            out = FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps, round_ln=round_ln)
             torch.cuda.synchronize()
-            err = max(err, _norm_compare(f"adaln {name} (2,{s},{d}), {str(mdt)[6:]} shift/scale",
-                                         out, FN.adaln_layer_norm_plain(x, shift, scale, eps=eps)))
+            err = max(err, _norm_compare(
+                f"adaln {name} (2,{s},{d}), {str(mdt)[6:]} shift/scale"
+                f"{', round_ln' if round_ln else ''}", out,
+                FN.adaln_layer_norm_plain(x, shift, scale, eps=eps, round_ln=round_ln)))
         shift, scale = mod.unsqueeze(2).unbind(1)[:2]
-        ms = timed_ms(lambda: FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps), iters=20)
-        plain_ms = timed_ms(lambda: FN.adaln_layer_norm_plain(x, shift, scale, eps=eps), iters=2)
+        ms = timed_ms(lambda: FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps, round_ln=True),
+                      iters=20)
+        ms_once = timed_ms(lambda: FN.adaln_layer_norm_kernel(x, shift, scale, eps=eps), iters=20)
+        plain_ms = timed_ms(lambda: FN.adaln_layer_norm_plain(x, shift, scale, eps=eps,
+                                                              round_ln=True), iters=2)
         weight, bias = 1 + scale[:, 0], shift[:, 0]
         library_ms = timed_ms(lambda: [F.layer_norm(x[i], (d,), weight[i], bias[i], eps)
                                        for i in range(2)], iters=20)
         b_ms, b_by = bound(0, nbytes(x, shift, scale, out), f32_ops=NORM_OPS * x.numel())
-        log(f"adaln {name} (2,{s},{d}): kernel {ms:.4f} ms ({nbytes(x, out) / ms / 1e6:.1f} GB/s), "
+        log(f"adaln {name} (2,{s},{d}): kernel {ms:.4f} ms round_ln "
+            f"({nbytes(x, out) / ms / 1e6:.1f} GB/s), {ms_once:.4f} ms one rounding, "
             f"plain {plain_ms:.3f} ms, F.layer_norm per batch row (2 calls) {library_ms:.4f} ms, "
             f"bound {b_ms:.4f} ms ({b_by})")
-        by_shape[name] = dict(shape=[2, s, d], max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                              bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
+        by_shape[name] = dict(shape=[2, s, d], max_abs_err=err, ms=ms, ms_one_rounding=ms_once,
+                              plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                              library_ms=library_ms)
         del x, mod, out
         torch.cuda.empty_cache()
     results = {"adaln_layer_norm": dict(by_shape[NORM_SHAPES[0][0]], by_shape=by_shape,
@@ -590,7 +603,8 @@ def _int8_kernel(gen, rnd):
 def _backward_kernels(gen, rnd, f32):
     """K5, the dq and dk/dv kernels, against their plain versions: a ragged
     small case, then the training shape (1, 48,832, 12, 128) with SCAIL's rope
-    tables (dq on q rows [0, 1024) and the last 1024, dk/dv on those kv rows)."""
+    tables (dq on q rows [0, 1024) and the last 1024, dk/dv on those kv rows),
+    where a second call must give the same bits."""
     import torch
     import torch.nn.functional as F
 
@@ -614,7 +628,13 @@ def _backward_kernels(gen, rnd, f32):
     o, lse = A.flash_attention(q, kr, v, rope=(tabs.cos, tabs.sin))
     qr = apply_rotary(q, cos, sin, True)  # what the autograd Function's backward passes
     dq, dk, dv = A.flash_attention_bwd(qr, kr, v, o, lse, do)
+    again = A.flash_attention_bwd(qr, kr, v, o, lse, do)  # two passes, no atomics
     torch.cuda.synchronize()
+    same = all(torch.equal(a, b) for a, b in zip((dq, dk, dv), again))
+    log(f"flash bwd (1,{S},12,128): a second call gives the same bits: {same}")
+    if not same:
+        fail("K5 is not deterministic: two calls at (1, 48,832, 12, 128) differ")
+    del again
     err = {"dq": 0.0, "dkv": 0.0}
     for sl in (slice(0, 1024), slice(S - 1024, S)):
         tag = f"(1,{S},12,128) rows [{sl.start},{sl.stop})"

@@ -5,6 +5,10 @@
 //   * _adaln_ln_kernel (launched by adaln_layer_norm):
 //       y = LN(x) * (1 + scale) + shift over the last dim, the LN statistics in
 //       f32 (mean, then the mean of the centred squares), one rounding to bf16;
+//     and, with round_ln, the same function at dit_forward's roundings
+//     (modulate(layer_norm(x), shift, scale) in bf16: LN(x) rounded, then
+//     1 + scale, the product and the sum each rounded), which the DiT's AdaLN
+//     sites take;
 //   * _rotary_kernel (launched by apply_rotary_pallas):
 //       x * cos + rotate_half_interleaved(x) * sin, computed in x's dtype.
 //
@@ -63,8 +67,13 @@ __device__ __forceinline__ void load8(const float* p, float* f) {
   f[4] = b.x; f[5] = b.y; f[6] = b.z; f[7] = b.w;
 }
 
-// V: 16-byte vectors (8 values) per lane, so D <= 256 * V; M: shift/scale type
-template <int V, typename M>
+__device__ __forceinline__ float bf16r(float v) {
+  return __bfloat162float(__float2bfloat16_rn(v));
+}
+
+// V: 16-byte vectors (8 values) per lane, so D <= 256 * V; M: shift/scale
+// type; ROUND_LN: dit_forward's roundings (M is bf16 then)
+template <int V, typename M, bool ROUND_LN>
 __global__ void __launch_bounds__(kNormWarps * 32)
 adaln_ln_kernel(const __nv_bfloat16* __restrict__ x, const M* __restrict__ shift,
                 const M* __restrict__ scale, __nv_bfloat16* __restrict__ out, int S, int D,
@@ -123,16 +132,17 @@ adaln_ln_kernel(const __nv_bfloat16* __restrict__ x, const M* __restrict__ shift
       for (int i = 0; i < 4; ++i) {
         const float y0 = (f[2 * i] - mean) * rstd;
         const float y1 = (f[2 * i + 1] - mean) * rstd;
-        oh[i] = __floats2bfloat162_rn(y0 * (1.f + g[2 * i]) + a[2 * i],
-                                      y1 * (1.f + g[2 * i + 1]) + a[2 * i + 1]);
+        if constexpr (ROUND_LN)
+          oh[i] = __floats2bfloat162_rn(bf16r(bf16r(y0) * bf16r(1.f + g[2 * i])) + a[2 * i],
+                                        bf16r(bf16r(y1) * bf16r(1.f + g[2 * i + 1])) +
+                                            a[2 * i + 1]);
+        else
+          oh[i] = __floats2bfloat162_rn(y0 * (1.f + g[2 * i]) + a[2 * i],
+                                        y1 * (1.f + g[2 * i + 1]) + a[2 * i + 1]);
       }
       orow[c] = o;
     }
   }
-}
-
-__device__ __forceinline__ float bf16r(float v) {
-  return __bfloat162float(__float2bfloat16_rn(v));
 }
 
 __global__ void __launch_bounds__(kRotaryThreads)
@@ -160,7 +170,7 @@ rotary_kernel(const __nv_bfloat16* __restrict__ x, const float* __restrict__ cos
   }
 }
 
-template <typename M>
+template <typename M, bool ROUND_LN>
 int launch_adaln(const void* x, const void* shift, const void* scale, void* out, int B, int S,
                  int D, long long x_sb, long long x_ss, long long m_sb, float eps,
                  cudaStream_t stream) {
@@ -169,7 +179,7 @@ int launch_adaln(const void* x, const void* shift, const void* scale, void* out,
   const int need = (D / 8 + 31) / 32;
 #define SCAIL_ADALN_CASE(V)                                                                  \
   if (need <= V) {                                                                           \
-    adaln_ln_kernel<V, M><<<grid, kNormWarps * 32, 0, stream>>>(                             \
+    adaln_ln_kernel<V, M, ROUND_LN><<<grid, kNormWarps * 32, 0, stream>>>(                   \
         static_cast<const __nv_bfloat16*>(x), static_cast<const M*>(shift),                  \
         static_cast<const M*>(scale), static_cast<__nv_bfloat16*>(out), S, D, rows, x_sb,    \
         x_ss, m_sb, eps);                                                                    \
@@ -194,16 +204,22 @@ int launch_adaln(const void* x, const void* shift, const void* scale, void* out,
 
 // Plain C entry points (loaded with ctypes); each returns cudaGetLastError().
 // x, out: bf16; out is a contiguous (B, S, D); shift/scale rows of D values at
-// batch stride m_sb, f32 when mod_f32 else bf16.
+// batch stride m_sb, f32 when mod_f32 else bf16; round_ln (bf16 shift/scale
+// only) selects dit_forward's roundings.
 extern "C" int scail_adaln_layer_norm(const void* x, const void* shift, const void* scale,
                                       void* out, int B, int S, int D, long long x_sb,
-                                      long long x_ss, long long m_sb, int mod_f32, float eps,
-                                      void* stream) {
+                                      long long x_ss, long long m_sb, int mod_f32, int round_ln,
+                                      float eps, void* stream) {
   const cudaStream_t st = static_cast<cudaStream_t>(stream);
   if (mod_f32)
-    return scail::launch_adaln<float>(x, shift, scale, out, B, S, D, x_sb, x_ss, m_sb, eps, st);
-  return scail::launch_adaln<__nv_bfloat16>(x, shift, scale, out, B, S, D, x_sb, x_ss, m_sb, eps,
-                                            st);
+    return round_ln ? static_cast<int>(cudaErrorInvalidValue)
+                    : scail::launch_adaln<float, false>(x, shift, scale, out, B, S, D, x_sb,
+                                                        x_ss, m_sb, eps, st);
+  if (round_ln)
+    return scail::launch_adaln<__nv_bfloat16, true>(x, shift, scale, out, B, S, D, x_sb, x_ss,
+                                                    m_sb, eps, st);
+  return scail::launch_adaln<__nv_bfloat16, false>(x, shift, scale, out, B, S, D, x_sb, x_ss,
+                                                   m_sb, eps, st);
 }
 
 // x: a bf16 (B, S, H, D) view with unit stride over D; cos/sin contiguous f32

@@ -7,9 +7,10 @@ per-layer tables, full-width q/k RMS norm, flash self-attention with the
 rotary fused into the kernel for q, the summed text + CLIP dual
 cross-attention kernel, a GELU(tanh) MLP, and the AdaLN final layer with
 unpatchify of the video tokens.  The three AdaLN LayerNorm-modulate passes
-run the fused AdaLN kernel and the interleaved rotary of q/k the rotary
-kernel (ops/fused_norms.py, K9 and K10) under the impl the layer's other
-kernels take.
+run the fused AdaLN kernel at dit_forward's roundings (round_ln: the
+LayerNorm rounded to the compute dtype before modulating) and the
+interleaved rotary of q/k the rotary kernel (ops/fused_norms.py, K9 and K10)
+under the impl the layer's other kernels take.
 
 Single device.  attn_impl='sta' keeps the layer stack in the sliding-tile
 order of ops/sta.py (one gather before the layers, one after) with q and k
@@ -397,7 +398,7 @@ class DiT(nn.Module):
             fmod = lin(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
         # only the video tokens are unpatchified: project just those rows
         out = adaln_layer_norm(hidden[:, video_rows], fmod[:, 0:1], fmod[:, 1:2], eps=eps,
-                               impl=cfg.kernel_impl)
+                               round_ln=True, impl=cfg.kernel_impl)
         out = lin(fl.linear, out)
         return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
 
@@ -431,7 +432,7 @@ class DiT(nn.Module):
         # self attention: q roped inside the flash kernel and k by the rotary
         # kernel; or both roped before STA and int8 attention (JAX ropes in
         # XLA when the rope is not fused)
-        ai = adaln_layer_norm(hidden, s_msa, sc_msa, eps=eps, impl=impl)
+        ai = adaln_layer_norm(hidden, s_msa, sc_msa, eps=eps, round_ln=True, impl=impl)
         q, k, v = lin(blk.qkv, ai).chunk(3, dim=-1)
         if cfg.qk_ln:
             q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
@@ -462,7 +463,7 @@ class DiT(nn.Module):
         hidden = hidden + lin(blk.cross_out, cross.flatten(2))
 
         # MLP
-        mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, impl=impl)
+        mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, round_ln=True, impl=impl)
         return hidden + g_mlp * lin(blk.mlp_out, gelu_tanh(lin(blk.mlp_in, mi)))
 
 

@@ -23,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scail_tpu_torch"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "dual_cross_attention.cu",
            "sta_attention.cu", "flash_attention_int8.cu", "w8a16_matmul.cu", "fused_norms.cu")
-HEADERS = ("mma_common.cuh", "flash_bwd_common.cuh")
+HEADERS = ("mma_common.cuh", "flash_bwd_common.cuh", "wgmma_common.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -122,7 +122,7 @@ def lib() -> ctypes.CDLL:
             for fn in (cdll.scail_w8a16_matmul, cdll.scail_w4a16_matmul):
                 fn.argtypes = [_P] * 5 + [_I] * 3 + [_L, _P]
                 fn.restype = _I
-            cdll.scail_adaln_layer_norm.argtypes = [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _F, _P]
+            cdll.scail_adaln_layer_norm.argtypes = [_P] * 4 + [_I] * 3 + [_L] * 3 + [_I, _I, _F, _P]
             cdll.scail_adaln_layer_norm.restype = _I
             cdll.scail_rotary_interleaved.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P]
             cdll.scail_rotary_interleaved.restype = _I

@@ -4,7 +4,9 @@ scail_tpu/ops/fused_norms.py).
 Two kernel wrappers over csrc/fused_norms.cu:
 
   * `adaln_layer_norm` -- y = LN(x) * (1 + scale) + shift (K9), the DiT's
-    AdaLN entry to self-attention and to the MLP, and its final layer;
+    AdaLN entry to self-attention and to the MLP, and its final layer; with
+    one rounding as the Pallas kernel, or with round_ln at dit_forward's
+    roundings, which the DiT takes;
   * `apply_rotary_fused` -- x * cos + rotate_half(x) * sin over interleaved
     pairs (K10), the rotary of k before the flash kernel, of q in its
     backward, and of q and k under sliding-tile and int8-QK attention.
@@ -35,17 +37,24 @@ NORM_MAX_DIM = 8192
 # --------------------------------------------------------------------------
 # Plain versions
 # --------------------------------------------------------------------------
-def adaln_layer_norm_plain(x, shift, scale, *, eps: float = 1e-6):
-    """The Pallas kernel's math: f32 mean, var = mean((x - mean)^2),
-    (x - mean) * rsqrt(var + eps), then * (1 + scale) + shift with shift and
-    scale in f32, and one rounding to x.dtype.  x (b, s, d), shift/scale
-    (b, 1, d).  In f32 it is modulate(layer_norm(x)) op for op; in bf16 it
-    rounds once where that chain rounds the LayerNorm before modulating."""
+def adaln_layer_norm_plain(x, shift, scale, *, eps: float = 1e-6, round_ln: bool = False):
+    """LN(x) * (1 + scale) + shift; x (b, s, d), shift/scale (b, 1, d).  The
+    statistics as the Pallas kernel computes them: f32 mean,
+    var = mean((x - mean)^2), (x - mean) * rsqrt(var + eps).  Then either
+      * round_ln=False (the Pallas kernel): * (1 + scale) + shift with shift
+        and scale in f32, one rounding to x.dtype; or
+      * round_ln=True (dit_forward's modulate(layer_norm(x), shift, scale)):
+        the LayerNorm rounded to x.dtype, then x * (1 + scale) + shift in the
+        types that promotion gives (bf16 shift/scale: each op rounded to bf16;
+        f32 shift/scale: an f32 result).
+    In f32 the two modes are the same ops."""
     xf = x.float()
     mean = xf.mean(-1, keepdim=True)
     xc = xf - mean
     var = xc.square().mean(-1, keepdim=True)
     y = xc * torch.rsqrt(var + eps)
+    if round_ln:
+        return y.to(x.dtype) * (1 + scale) + shift
     return (y * (1 + scale.float()) + shift.float()).to(x.dtype)
 
 
@@ -85,12 +94,13 @@ def _stream(device):
     return ctypes.c_void_p(torch.cuda.current_stream(device).cuda_stream)
 
 
-def adaln_layer_norm_kernel(x, shift, scale, *, eps: float = 1e-6):
+def adaln_layer_norm_kernel(x, shift, scale, *, eps: float = 1e-6, round_ln: bool = False):
     """K9 on x (b, s, d) bf16, strided over (b, s) with 16-byte aligned rows,
-    and shift/scale (b or 1, 1, d), both bf16 or both f32; returns a
-    contiguous (b, s, d) bf16.  CPU tensors take the plain version."""
+    and shift/scale (b or 1, 1, d), both bf16 or both f32 (bf16 only with
+    round_ln, whose result would otherwise be f32); returns a contiguous
+    (b, s, d) bf16.  CPU tensors take the plain version."""
     if x.device.type == "cpu":
-        return adaln_layer_norm_plain(x, shift, scale, eps=eps)
+        return adaln_layer_norm_plain(x, shift, scale, eps=eps, round_ln=round_ln)
     if x.device.type != "cuda":
         raise NotImplementedError(f"adaln_layer_norm: no kernel for device {x.device}")
     if x.dtype != torch.bfloat16:
@@ -103,6 +113,9 @@ def adaln_layer_norm_kernel(x, shift, scale, *, eps: float = 1e-6):
     if shift.dtype != scale.dtype or shift.dtype not in (torch.bfloat16, torch.float32):
         raise TypeError(f"adaln_layer_norm: shift/scale must both be bfloat16 or float32, got "
                         f"{shift.dtype} / {scale.dtype}")
+    if round_ln and shift.dtype != torch.bfloat16:
+        raise TypeError("adaln_layer_norm: round_ln takes bfloat16 shift/scale (with f32 ones "
+                        "the modulation's result is f32, which the kernel does not write)")
     if shift.stride(0) != scale.stride(0):  # the kernel takes one batch stride for both
         shift, scale = shift.contiguous(), scale.contiguous()
     for name, t, rows in (("x", x, 2), ("shift", shift, 1), ("scale", scale, 1)):
@@ -117,7 +130,7 @@ def adaln_layer_norm_kernel(x, shift, scale, *, eps: float = 1e-6):
     rc = cuda_build.lib().scail_adaln_layer_norm(
         x.data_ptr(), shift.data_ptr(), scale.data_ptr(), out.data_ptr(), b, s, d,
         ctypes.c_longlong(x.stride(0)), ctypes.c_longlong(x.stride(1)),
-        ctypes.c_longlong(shift.stride(0)), int(shift.dtype == torch.float32),
+        ctypes.c_longlong(shift.stride(0)), int(shift.dtype == torch.float32), int(round_ln),
         ctypes.c_float(eps), _stream(x.device))
     cuda_build.check(rc, "adaln_layer_norm")
     attention.LAUNCHES["adaln_layer_norm"] += 1
@@ -164,18 +177,19 @@ class _AdaLayerNorm(torch.autograd.Function):
     from the saved inputs, for the exact gradients of x, shift and scale."""
 
     @staticmethod
-    def forward(ctx, x, shift, scale, eps):
+    def forward(ctx, x, shift, scale, eps, round_ln):
         ctx.save_for_backward(x, shift, scale)
-        ctx.eps = eps
-        return adaln_layer_norm_kernel(x, shift, scale, eps=eps)
+        ctx.eps, ctx.round_ln = eps, round_ln
+        return adaln_layer_norm_kernel(x, shift, scale, eps=eps, round_ln=round_ln)
 
     @staticmethod
     def backward(ctx, g):
         inputs = [t.detach().requires_grad_() for t in ctx.saved_tensors]
         with torch.enable_grad():
-            y = adaln_layer_norm_plain(*inputs, eps=ctx.eps)
+            y = adaln_layer_norm_plain(*inputs, eps=ctx.eps, round_ln=ctx.round_ln)
         grads = torch.autograd.grad(y, inputs, g)
-        return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)), None)
+        return (*(gr if need else None for gr, need in zip(grads, ctx.needs_input_grad)),
+                None, None)
 
 
 class _Rotary(torch.autograd.Function):
@@ -196,15 +210,17 @@ class _Rotary(torch.autograd.Function):
 # --------------------------------------------------------------------------
 # Public ops
 # --------------------------------------------------------------------------
-def adaln_layer_norm(x, shift, scale, *, eps: float = 1e-6, impl: str = "auto"):
-    """LN(x) * (1 + scale) + shift; x (b, s, d), shift/scale (b, 1, d).
+def adaln_layer_norm(x, shift, scale, *, eps: float = 1e-6, round_ln: bool = False,
+                     impl: str = "auto"):
+    """LN(x) * (1 + scale) + shift; x (b, s, d), shift/scale (b, 1, d);
+    round_ln as in adaln_layer_norm_plain (True: dit_forward's roundings).
     impl 'auto' the kernel wrapper (the plain version on CPU tensors), 'xla'
     the plain version on any device."""
     if not attention._check_impl(impl):
-        return adaln_layer_norm_plain(x, shift, scale, eps=eps)
+        return adaln_layer_norm_plain(x, shift, scale, eps=eps, round_ln=round_ln)
     if torch.is_grad_enabled() and any(t.requires_grad for t in (x, shift, scale)):
-        return _AdaLayerNorm.apply(x, shift, scale, eps)
-    return adaln_layer_norm_kernel(x, shift, scale, eps=eps)
+        return _AdaLayerNorm.apply(x, shift, scale, eps, round_ln)
+    return adaln_layer_norm_kernel(x, shift, scale, eps=eps, round_ln=round_ln)
 
 
 def apply_rotary_fused(x, cos, sin, *, interleaved: bool = True, impl: str = "auto"):

@@ -86,6 +86,76 @@ def test_flash_attention_bwd_kernels_match_plain(cuda, strided_v):
     assert all(torch.equal(a, b) for a, b in zip(got, again))
 
 
+def _bwd_once(q, k, v, out, lse, do):
+    """K5 once, with its exact launch counts checked: (dq, dk, dv)."""
+    before = dict(A.LAUNCHES)
+    got = A.flash_attention_bwd(q, k, v, out, lse, do)
+    torch.cuda.synchronize()
+    for name in A.LAUNCHES:
+        extra = name in ("flash_attention_bwd_dq", "flash_attention_bwd_dkv")
+        assert A.LAUNCHES[name] == before[name] + extra, name
+    return got
+
+
+def _check_bwd(q, k, v, out, lse, do):
+    """K5 against its plain version on the same bf16 inputs, so that both round
+    q2, P and dS where the Pallas kernels do (on f32 copies one q row leaves
+    the bf16 rounding of each product unaveraged), then a second call for the
+    same bits."""
+    got = _bwd_once(q, k, v, out, lse, do)
+    want = A.flash_attention_bwd_plain(q, k, v, out, lse, do)
+    for g, w in zip(got, want):
+        _assert_close(g, w)
+    again = _bwd_once(q, k, v, out, lse, do)
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 63, 65, 129, 150])
+@pytest.mark.parametrize("skv", [64, 176, 200])
+def test_flash_attention_bwd_ragged_tiles(cuda, sq, skv):
+    """Both sides of K5's 64-row tiles and its 128-row K/V block: every q and
+    kv tail is masked, nothing past it is written, and a second call gives the
+    same bits."""
+    q, do = _rnd(cuda, 1, sq, 2, 128), _rnd(cuda, 1, sq, 2, 128)
+    k, v = _rnd(cuda, 1, skv, 2, 128), _rnd(cuda, 1, skv, 2, 128)
+    out, lse = A.flash_attention(q, k, v)
+    _check_bwd(q, k, v, out, lse, do)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq, skv, heads", [(1100, 300, 64), (1792, 6000, 2)])
+def test_flash_attention_bwd_wide_and_ref_row_grids(cuda, sq, skv, heads):
+    """The dq pass's two CTA shapes: 128 q rows a CTA where the grid fills the
+    card four times over (1,100 rows x 64 heads), 64 rows otherwise (the STA
+    path's 1,792 ref rows against a longer kv run, at two heads)."""
+    k, v = _rnd(cuda, 1, skv, heads, 128), _rnd(cuda, 1, skv, heads, 128)
+    q = _rnd(cuda, 1, max(sq, skv), heads, 128)[:, -sq:]  # the last rows, as STA slices them
+    do = _rnd(cuda, 1, sq, heads, 128)
+    out, lse = A.flash_attention(q, k, v)
+    _check_bwd(q, k, v, out, lse, do)
+
+
+@pytest.mark.cuda
+def test_flash_attention_bwd_kernels_take_head_strided_views(cuda):
+    """q/k/v/dO as the DiT hands them over: (b, s, n, 128) column slices of a
+    (b, s, 3 n 128) projection.  The kernels read them through their strides
+    and give the same bits as on contiguous copies."""
+    b, sq, skv, n = 2, 150, 200, 3
+    scale = 128 ** -0.5
+    qkv = _rnd(cuda, b, sq, 3 * n * 128).unflatten(-1, (3 * n, 128))
+    kv = _rnd(cuda, b, skv, 3 * n * 128).unflatten(-1, (3 * n, 128))
+    q, do, k, v = qkv[:, :, :n], qkv[:, :, n:2 * n], kv[:, :, n:2 * n], kv[:, :, 2 * n:]
+    lse2 = torch.randn(b, n, sq, generator=cuda, device="cuda") + 8.0
+    delta = torch.randn(b, n, sq, generator=cuda, device="cuda")
+    outs = []
+    for ops in ((q, k, v, do), tuple(t.contiguous() for t in (q, k, v, do))):
+        dq = A.flash_attention_bwd_dq(*ops, lse2, delta, scale=scale)
+        outs.append((dq, *A.flash_attention_bwd_dkv(*ops, lse2, delta)))
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, c) for a, c in zip(*outs))
+
+
 @pytest.mark.cuda
 @pytest.mark.parametrize("interleaved", [True, False])
 def test_attention_gradients_on_the_card_match_the_plain_path(cuda, interleaved):
@@ -287,6 +357,28 @@ def test_adaln_layer_norm_kernel_matches_plain(cuda, mod_dtype, d):
     assert got.shape == want.shape and got.dtype == torch.bfloat16
     err = F.adaln_error_vs_plain(got, want)
     assert err["ok"], err
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("d", [64, 1536, 5120])
+def test_adaln_layer_norm_round_ln_kernel_matches_plain(cuda, d):
+    """K9 at dit_forward's roundings (the DiT's sites) on the same strided
+    operands, within the same limits; f32 shift/scale, whose modulation JAX
+    would return in f32, are refused."""
+    from scail_tpu_torch.ops import fused_norms as F
+
+    x = _rnd(cuda, 2, 150, 2 * d)[..., d:]
+    shift, scale = _rnd(cuda, 2, 6, d).unsqueeze(2).unbind(1)[:2]
+    before = A.LAUNCHES["adaln_layer_norm"]
+    got = F.adaln_layer_norm_kernel(x, shift, scale, eps=1e-6, round_ln=True)
+    torch.cuda.synchronize()
+    assert A.LAUNCHES["adaln_layer_norm"] == before + 1
+    want = F.adaln_layer_norm_plain(x, shift, scale, eps=1e-6, round_ln=True)
+    assert got.shape == want.shape and got.dtype == want.dtype == torch.bfloat16
+    err = F.adaln_error_vs_plain(got, want)
+    assert err["ok"], err
+    with pytest.raises(TypeError):
+        F.adaln_layer_norm_kernel(x, shift.float(), scale.float(), round_ln=True)
 
 
 @pytest.mark.cuda
