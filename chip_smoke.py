@@ -476,6 +476,15 @@ QUANT_SHAPES = (("qkv", 97664, 5120, 15360), ("mlp_in", 97664, 5120, 13824),
                 ("cross_kv", 1024, 5120, 10240))
 
 
+# the earlier designs' times (mma.sync, synchronous loads) on NVIDIA H100 80GB
+# HBM3 at 700 W, from this script's phase 3 (PERF.md), logged beside each new time
+PARENT_MS = {"w8a16_matmul": {"qkv": 74.48, "mlp_in": 67.35, "mlp_out": 65.88,
+                              "attn_out": 24.83, "cross_kv": 0.758},
+             "w4a16_matmul": {"qkv": 67.61, "mlp_in": 60.70, "mlp_out": 60.98,
+                              "attn_out": 22.74, "cross_kv": 0.554},
+             "flash_attention_int8": 656.48}
+
+
 def _rows_view(t):
     """A (M, N) matmul output as error_vs_plain's (1, M, 1, N)."""
     return t.reshape(1, -1, 1, t.shape[-1])
@@ -543,7 +552,8 @@ def _quant_kernels(gen):
             flops = 2 * m * n * k
             b_ms, b_by = bound(flops, nbytes(x, codes, scale, bias, out))
             log(f"{key} {name} ({m},{k})x({k},{n}): kernel {ms:.3f} ms "
-                f"({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, torch.matmul on "
+                f"({flops / ms / 1e9:.1f} TFLOP/s; mma.sync design {PARENT_MS[key][name]} ms), "
+                f"plain {plain_ms:.3f} ms, torch.matmul on "
                 f"the dequantized bf16 weight {library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
             by_shape[name] = dict(shape=[m, k, n], max_abs_err=err, ms=ms, plain_ms=plain_ms,
                                   bound_ms=b_ms, bound_by=b_by, library_ms=library_ms)
@@ -591,7 +601,8 @@ def _int8_kernel(gen, rnd):
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), iters=2)
     ops = 2 * 2 * H * S * S * 128  # each of QK^T (int8) and P V (bf16)
     b_ms, b_by = bound(ops, nbytes(q, k, v, o, lse), int8_ops=ops)
-    log(f"flash int8 (2,{S},{H},128): kernel {ms:.3f} ms ({2 * ops / ms / 1e9:.1f} TOP/s), "
+    log(f"flash int8 (2,{S},{H},128): kernel {ms:.3f} ms ({2 * ops / ms / 1e9:.1f} TOP/s; "
+        f"mma.sync design {PARENT_MS['flash_attention_int8']} ms), "
         f"plain {plain_ms:.3f} ms, SDPA (bf16, exact) {library_ms:.3f} ms, bound {b_ms:.3f} ms "
         f"({b_by})")
     del q, k, v, o, lse

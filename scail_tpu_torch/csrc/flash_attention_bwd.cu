@@ -92,11 +92,6 @@ struct DqCfg {
   static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-__device__ __forceinline__ unsigned char* align_1k(unsigned char* p) {
-  const uint32_t a = smem_u32(p);
-  return p + (((a + 1023u) & ~1023u) - a);
-}
-
 // Byte offset of k-step kk (16 columns of the head dim) in a K-major tile
 // whose column halves are `half` bytes apart.
 __host__ __device__ constexpr int kmajor_off(int kk, int half) {
@@ -156,7 +151,7 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
   using Cfg = k5::DqCfg<NW>;
   constexpr int S = Cfg::kStages;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = k5::align_1k(smem_raw);
+  unsigned char* sm = align_1k(smem_raw);
   uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + Cfg::kBars);
   uint64_t* full = q_full + 1;
   uint64_t* empty = full + S;
@@ -315,7 +310,7 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
                      Strides dvs) {
   constexpr int S = k5::kDkvStages;
   extern __shared__ unsigned char smem_raw[];
-  unsigned char* sm = k5::align_1k(smem_raw);
+  unsigned char* sm = align_1k(smem_raw);
   const float* s_lse = reinterpret_cast<const float*>(sm + k5::kDkvLse);
   const float* s_delta = reinterpret_cast<const float*>(sm + k5::kDkvDelta);
   uint64_t* kv_full = reinterpret_cast<uint64_t*>(sm + k5::kDkvBars);

@@ -125,6 +125,18 @@ def _int8_operands(q, k, scale):
     return qi, qs * (scale * _LOG2E), ki, ks
 
 
+def _int8_kernel_operands(q, k, scale):
+    """`_int8_operands` laid out for the kernel: (qi, qs, ki, ks) with the k
+    scales re-laid as (b*n, skv rounded up to 64) f32, zero past skv (JAX
+    _flash_int8_fwd's (b*n, skv + pad) row of k scales, padded with 0 to the
+    kernel's 64-row tiles), so a tile's scales are one contiguous copy."""
+    qi, qs, ki, ks = _int8_operands(q, k, scale)
+    b, skv, n = ks.shape
+    ks_rows = ks.new_zeros((b * n, -(-skv // 64) * 64))
+    ks_rows[:, :skv] = ks.permute(0, 2, 1).reshape(b * n, skv)
+    return qi, qs, ki, ks_rows
+
+
 def flash_attention_int8_plain(q, k, v, *, scale=None, block_q: int = 256):
     """Plain version of `flash_attention_int8`: (out (b,sq,n,d) in v.dtype,
     lse (b,n,sq) f32, natural log).  With d = 128 every sum of code products
@@ -362,7 +374,7 @@ def flash_attention_int8(q, k, v, *, scale=None):
     if k.shape != (b, skv, n, d) or v.shape != k.shape or b * n > 65535 or skv == 0:
         raise ValueError(f"flash_attention_int8: unsupported shapes q {tuple(q.shape)} "
                          f"k {tuple(k.shape)} v {tuple(v.shape)}")
-    qi, qs, ki, ks = _int8_operands(q, k, scale)
+    qi, qs, ki, ks = _int8_kernel_operands(q, k, scale)
     out = torch.empty((b, sq, n, d), dtype=v.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device)
     rc = cuda_build.lib().scail_flash_attention_int8_fwd(

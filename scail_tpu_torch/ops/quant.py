@@ -2,8 +2,8 @@
 kernel and its plain PyTorch version (counterpart of scail_tpu/ops/quant.py).
 
 Layout: the port keeps nn.Linear's (out, in) = (N, K) for the codes, so a
-code row is K-contiguous, the column-major B operand of the kernel's
-mma.sync: `qweight` (N, K) int8, or `qweight4` (N, K/2) uint8 with the even
+code row is K-contiguous, the K-major B operand of the kernel's wgmma once
+converted to bf16: `qweight` (N, K) int8, or `qweight4` (N, K/2) uint8 with the even
 input index in the low nibble and the odd one in the high nibble; `scale`
 (N,) per output channel.  The JAX package stores the transposes, (K, N) and
 (K/2, N); convert/from_jax.py moves between the two.
@@ -106,6 +106,8 @@ def _launch(x, codes, scale, bias, bits):
     if codes.dim() != 2 or (codes.dtype, codes.shape[1]) != want or not codes.is_contiguous():
         raise ValueError(f"{name}: codes must be contiguous {want[0]} (N, {want[1]}), got "
                          f"{codes.dtype} {tuple(codes.shape)}")
+    if codes.data_ptr() % 16:
+        raise ValueError(f"{name}: the kernel needs 16-byte aligned codes")
     if k % 16 or k == 0 or n == 0:
         raise ValueError(f"{name}: the kernel needs K a positive multiple of 16, got K={k}, N={n}")
     if scale.shape != (n,):
@@ -118,7 +120,7 @@ def _launch(x, codes, scale, bias, bits):
             raise ValueError(f"{name}: {nm} is on {t.device}, x on {x.device}")
     x2 = x.reshape(-1, k)
     if x2.stride(1) != 1 or x2.stride(0) % 8 or x2.data_ptr() % 16:
-        x2 = x2.contiguous()  # a layout copy: the kernel reads 16-byte rows
+        x2 = x2.contiguous()  # a layout copy: TMA reads 16-byte aligned rows
     m = x2.shape[0]
     out = torch.empty((m, n), dtype=x.dtype, device=x.device)
     if m:

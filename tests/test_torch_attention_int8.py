@@ -49,6 +49,28 @@ def test_quantize_rows_bit_exact_with_jax(rng):
     assert torch.equal(q, *_t(jq)) and torch.equal(s, *_t(js))
 
 
+@pytest.mark.parametrize("sq, skv", [(100, 150), (64, 64), (1, 65)])
+def test_kernel_operands_bit_exact_with_jax_int8_fwd(rng, sq, skv):
+    """What the K6 wrapper hands the kernel: the codes and scales of JAX
+    _flash_int8_fwd on the (b*n, s, d) layout, the q scales folded with
+    scale*log2e, the k scales re-laid as (b*n, skv) rows padded with zeros to
+    the kernel's 64-row tiles (JAX pads them to its block_k)."""
+    b, n = 2, 3
+    q, k = _rand(rng, b, sq, n, 128) * 2.0, _rand(rng, b, skv, n, 128)
+    scale = 1.0 / np.sqrt(128)
+    qi, qs, ki, ks = tattn._int8_kernel_operands(*_t(q, k), scale)
+    bnsd = lambda a: jnp.asarray(a.transpose(0, 2, 1, 3).reshape(b * n, -1, 128))  # noqa: E731
+    jqi, jqs = jattn._quantize_rows(bnsd(q))
+    jqs = jqs * (scale * jattn._LOG2E)
+    jki, jks = jattn._quantize_rows(bnsd(k))
+    jks = jnp.pad(jks, ((0, 0), (0, (-skv) % 64)))
+    to_bnsd = lambda t: t.permute(0, 2, 1, 3).reshape(b * n, -1, 128)  # noqa: E731
+    assert torch.equal(to_bnsd(qi), *_t(jqi)) and torch.equal(to_bnsd(ki), *_t(jki))
+    assert torch.equal(qs.permute(0, 2, 1).reshape(b * n, sq), *_t(jqs))
+    assert ks.shape == (b * n, -(-skv // 64) * 64) and ks.dtype == torch.float32
+    assert torch.equal(ks, *_t(jks))
+
+
 def _qkv(rng, s=384):
     """(1, 384, 2, 128): 384 kv rows are one and a half 256-row JAX blocks,
     so the JAX kernel pads and masks a KV tail."""

@@ -265,7 +265,7 @@ def _matmul_view(t):
 @pytest.mark.parametrize("n, bias, strided", [(200, False, False), (201, True, True)])
 def test_quantized_matmul_kernels_match_plain(cuda, bits, n, bias, strided):
     """K4 (W8A16 / W4A16) at M = 300 and N = 200 or 201, neither a multiple
-    of the 128 x 128 tile, K = 160 (five 32-deep steps); every int4 nibble,
+    of the 128 x 128 tile, K = 160 (two and a half 64-deep stages); every int4 nibble,
     -8 included; with a bias and x rows on a wider stride."""
     from scail_tpu_torch.ops import quant as Q
 
@@ -298,6 +298,47 @@ def test_quantized_matmul_kernels_match_plain(cuda, bits, n, bias, strided):
     _assert_close(_matmul_view(got), _matmul_view(ref))
 
 
+def _check_quant(x, codes, scale, bias, bits):
+    """K4 against its plain version, then a second call for the same bits."""
+    from scail_tpu_torch.ops import quant as Q
+
+    mm = Q.matmul_w8a16 if bits == 8 else Q.matmul_w4a16
+    got = mm(x, codes, scale, bias)
+    want = mm(x, codes, scale, bias, impl="xla")
+    assert got.shape == want.shape and got.dtype == torch.bfloat16
+    _assert_close(_matmul_view(got), _matmul_view(want))
+    assert torch.equal(got, mm(x, codes, scale, bias))
+
+
+def _codes(gen, n, k, bits):
+    if bits == 8:
+        return torch.randint(-127, 128, (n, k), generator=gen, device="cuda", dtype=torch.int8)
+    return torch.randint(0, 256, (n, k // 2), generator=gen, device="cuda", dtype=torch.uint8)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+@pytest.mark.parametrize("m, n, k", [(127, 129, 160), (129, 127, 208), (128, 128, 64),
+                                     (1, 8, 16), (257, 255, 48), (300, 201, 96)])
+def test_quantized_matmul_ragged_tiles(cuda, bits, m, n, k):
+    """M and N one off K4's 128 x 128 output tile, K with a tail in the
+    64-deep stages (160, 208), and int4 rows of K/2 bytes that are no 16-byte
+    multiple (K = 16, 48, 208: the cp.async path), x on a wider row stride."""
+    x = _rnd(cuda, m, k + 32)[:, :k]
+    scale = (torch.rand(n, generator=cuda, device="cuda") * 0.02 + 1e-3).bfloat16()
+    _check_quant(x, _codes(cuda, n, k, bits), scale, _rnd(cuda, n), bits)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("bits", [8, 4])
+def test_quantized_matmul_at_the_cross_kv_shape(cuda, bits):
+    """The 14B's cross_kv linear: M = 1,024 rows (8 row tiles) by N = 10,240,
+    K = 5,120."""
+    x = _rnd(cuda, 1024, 5120)
+    scale = torch.full((10240,), 0.02 / 127, device="cuda")
+    _check_quant(x, _codes(cuda, 10240, 5120, bits), scale, _rnd(cuda, 10240), bits)
+
+
 @pytest.mark.cuda
 def test_quantized_matmul_wrapper_rejects_what_the_kernel_does_not_take(cuda):
     from scail_tpu_torch.ops import quant as Q
@@ -322,6 +363,37 @@ def test_flash_attention_int8_kernel_matches_plain(cuda):
     want, want_lse = A.flash_attention_int8_plain(q, k, v)
     _assert_close(out, want)
     _assert_close(lse, want_lse, lse=True)
+
+
+def _check_int8(q, k, v):
+    """K6 against its plain version on the same bf16 inputs, then a second
+    call for the same bits."""
+    out, lse = A.flash_attention_int8(q, k, v)
+    want, want_lse = A.flash_attention_int8_plain(q, k, v)
+    _assert_close(out, want)
+    _assert_close(lse, want_lse, lse=True)
+    again, again_lse = A.flash_attention_int8(q, k, v)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("sq", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 127, 128, 129])
+def test_flash_attention_int8_ragged_tiles(cuda, sq, skv):
+    """Both sides of K6's 64-row kv stages and its 128-row q tile (two
+    consumer warpgroups): every q and kv tail, Sq != Skv."""
+    q = _rnd(cuda, 1, sq, 2, 128)
+    k, v = _rnd(cuda, 1, skv, 2, 128), _rnd(cuda, 1, skv, 2, 128)
+    _check_int8(q, k, v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_int8_at_40_heads_with_a_head_strided_v(cuda):
+    """The 14B's 40 heads at q 150 and kv 176 rows, v a head-strided view of
+    a packed qkv-like tensor."""
+    q, k = _rnd(cuda, 2, 150, 40, 128), _rnd(cuda, 2, 176, 40, 128)
+    v = _rnd(cuda, 2, 176, 40, 3 * 128)[..., 128:256]
+    _check_int8(q, k, v)
 
 
 @pytest.mark.cuda
