@@ -75,8 +75,9 @@ counted from 0, and their sum), its largest error against the plain version,
 the kernel's, the plain version's and the library call's milliseconds at the
 main-path shape, and the bound: the larger of bytes moved over 3.35 TB/s and
 the operations over the card's dense rates (989 TFLOP/s bf16 and 1,979 TOP/s
-int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  The last
-line is {"ok": true, "device": ...}.
+int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  K1's
+and K2's entries add their rate (`tflops`) and `share_of_bound` (the bound
+over the kernel's time).  The last line is {"ok": true, "device": ...}.
 """
 
 import json
@@ -281,11 +282,12 @@ def phase_kernels():
             flops = 4 * 24 * S * S * 128
             b_ms, b_by = bound(flops, nbytes(q, kk, v, o, lse, *(rope or ())))
             log(f"flash rope={mode} main shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-                f"TFLOP/s), plain {plain_ms:.3f} ms, SDPA {library_ms:.3f} ms, bound "
-                f"{b_ms:.3f} ms ({b_by})")
+                f"TFLOP/s, {b_ms / ms:.1%} of bound; mma.sync design "
+                f"{PARENT_MS['flash_attention_rope']} ms), plain {plain_ms:.3f} ms, SDPA "
+                f"{library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
             results["flash_attention_rope"] = dict(
                 max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                library_ms=library_ms, tflops=flops / ms / 1e9, share_of_bound=b_ms / ms)
     del kk
 
     # dual cross-attention: 48,832 q rows x (512 text, 257 CLIP) keys
@@ -482,7 +484,8 @@ PARENT_MS = {"w8a16_matmul": {"qkv": 74.48, "mlp_in": 67.35, "mlp_out": 65.88,
                               "attn_out": 24.83, "cross_kv": 0.758},
              "w4a16_matmul": {"qkv": 67.61, "mlp_in": 60.70, "mlp_out": 60.98,
                               "attn_out": 22.74, "cross_kv": 0.554},
-             "flash_attention_int8": 656.48}
+             "flash_attention_int8": 656.48,
+             "flash_attention_rope": 175.73, "flash_attention": 7.522}
 
 
 def _rows_view(t):
@@ -943,10 +946,11 @@ def _ref_rows_fwd(q, k, v, ref):
         qr.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
     flops = 4 * q.shape[0] * q.shape[2] * ref * k.shape[1] * 128
     b_ms, b_by = bound(flops, nbytes(qr, k, v, o, lse))
-    log(f"{tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), plain {plain_ms:.3f} ms, "
+    log(f"{tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of bound; "
+        f"mma.sync design {PARENT_MS['flash_attention']} ms), plain {plain_ms:.3f} ms, "
         f"SDPA {library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
-                library_ms=library_ms)
+                library_ms=library_ms, tflops=flops / ms / 1e9, share_of_bound=b_ms / ms)
 
 
 def _ref_rows_bwd(q, k, v, do, ref):

@@ -26,11 +26,13 @@ engine is built.
 
 Per phase: wall ms, device ms (the sum of kernel and memcpy/memset times that
 torch.profiler reads from CUPTI), device busy share (device ms / wall ms, one
-stream), peak allocated memory, and device ms by group (each attention
-kernel: K1 flash_attention, K2 flash_attention_norope, K5 flash_attention_bwd,
-K3 dual_cross_attention, K7 sta_attention, K8 sta_attention_bwd, K4
-w8a16_matmul (W8A16 and W4A16), K6 flash_attention_int8, K9
-adaln_layer_norm, K10 rotary; GEMMs, convolutions, copies, the rest).
+stream), peak allocated memory, the card's SM clock and board power that
+nvidia-smi samples every 100 ms during the profiled call, and device ms by
+group (each attention kernel: K1 flash_attention, K2 flash_attention_norope,
+K5 flash_attention_bwd, K3 dual_cross_attention, K7 sta_attention, K8
+sta_attention_bwd, K4 w8a16_matmul (W8A16 and W4A16), K6
+flash_attention_int8, K9 adaln_layer_norm, K10 rotary; GEMMs, convolutions,
+copies, the rest).
 Prints one JSON line per phase and writes each phase's kernel table under
 --out.
 
@@ -43,6 +45,7 @@ import argparse
 import dataclasses
 import json
 import os
+import subprocess
 import time
 
 import torch
@@ -67,6 +70,29 @@ GROUPS = (("w8a16_matmul", ("w8a16_kernel",)),
           ("copy", ("memcpy", "memset", "copy", "nchwtonhwc", "nhwctonchw")))
 
 
+# the card's SM clock (MHz) and board power (W), one line every 100 ms
+SMI_SAMPLES = ["nvidia-smi", "-i", "0", "--query-gpu=clocks.sm,power.draw",
+               "--format=csv,noheader,nounits", "-lms", "100"]
+
+
+def _clock_stats(lines):
+    """Mean and least SM clock and mean and largest board power of nvidia-smi's
+    `clocks.sm, power.draw` lines (unreadable lines skipped); None if none."""
+    samples = []
+    for line in lines:
+        try:
+            clock, power = (float(x) for x in line.split(","))
+        except ValueError:
+            continue
+        samples.append((clock, power))
+    if not samples:
+        return None
+    clocks, power = zip(*samples)
+    return {"samples": len(samples), "sm_clock_mhz_mean": sum(clocks) / len(clocks),
+            "sm_clock_mhz_min": min(clocks), "power_w_mean": sum(power) / len(power),
+            "power_w_max": max(power)}
+
+
 def _device_field(event) -> str:
     for name in ("self_device_time_total", "self_cuda_time_total"):
         if hasattr(event, name):
@@ -89,11 +115,17 @@ def profile_phase(name, fn, out_dir):
     fn()
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        fn()
-        torch.cuda.synchronize()
-        wall_ms = (time.perf_counter() - t0) * 1e3
+    smi = subprocess.Popen(SMI_SAMPLES, stdout=subprocess.PIPE, stderr=subprocess.DEVNULL,
+                           text=True)
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall_ms = (time.perf_counter() - t0) * 1e3
+    finally:
+        smi.terminate()
+    clocks = _clock_stats(smi.communicate(timeout=30)[0].splitlines())
     events = prof.key_averages()
     field = _device_field(events[0])
     groups = {}
@@ -110,6 +142,7 @@ def profile_phase(name, fn, out_dir):
         f.write(events.table(sort_by=field, row_limit=40))
     return {"phase": name, "wall_ms": wall_ms, "device_ms": device_ms,
             "busy": device_ms / wall_ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "clocks": clocks,
             "device_ms_by_group": dict(sorted(groups.items(), key=lambda kv: -kv[1]))}
 
 

@@ -92,12 +92,6 @@ struct DqCfg {
   static constexpr int kSmem = kBars + 8 * (1 + 2 * kStages) + 1024;
 };
 
-// Byte offset of k-step kk (16 columns of the head dim) in a K-major tile
-// whose column halves are `half` bytes apart.
-__host__ __device__ constexpr int kmajor_off(int kk, int half) {
-  return (kk / 4) * half + (kk % 4) * 32;
-}
-
 // Byte offset of k-step kk (16 rows) in an MN-major view of a 64-row tile
 // (N = the head dim, its two halves kHalf64 apart: the descriptor's LBO).
 __host__ __device__ constexpr int mnmajor_off(int kk) { return kk * 2048; }
@@ -223,12 +217,12 @@ flash_bwd_dq_kernel(const __grid_constant__ CUtensorMap tq, const __grid_constan
       wgmma_fence();
       static_for<8>([&](auto kk) {
         constexpr int K = decltype(kk)::value;
-        wgmma_m64n64k16_ss<k5::kmajor_off(K, kQHalf), k5::kmajor_off(K, k5::kHalf64)>(
+        wgmma_m64n64k16_ss<kmajor_off(K, kQHalf), kmajor_off(K, k5::kHalf64)>(
             sc, qa, kb, K > 0);
       });
       static_for<8>([&](auto kk) {
         constexpr int K = decltype(kk)::value;
-        wgmma_m64n64k16_ss<k5::kmajor_off(K, kQHalf), k5::kmajor_off(K, k5::kHalf64)>(
+        wgmma_m64n64k16_ss<kmajor_off(K, kQHalf), kmajor_off(K, k5::kHalf64)>(
             dp, da, vb, K > 0);
       });
       wgmma_commit();
@@ -379,12 +373,12 @@ flash_bwd_dkv_kernel(const __grid_constant__ CUtensorMap tq,
     wgmma_fence();
     static_for<8>([&](auto kk) {
       constexpr int K = decltype(kk)::value;
-      wgmma_m64n64k16_ss<k5::kmajor_off(K, kHalf), k5::kmajor_off(K, k5::kHalf64)>(
+      wgmma_m64n64k16_ss<kmajor_off(K, kHalf), kmajor_off(K, k5::kHalf64)>(
           sdp[0], ka, qb, K > 0);
     });
     static_for<8>([&](auto kk) {
       constexpr int K = decltype(kk)::value;
-      wgmma_m64n64k16_ss<k5::kmajor_off(K, kHalf), k5::kmajor_off(K, k5::kHalf64)>(
+      wgmma_m64n64k16_ss<kmajor_off(K, kHalf), kmajor_off(K, k5::kHalf64)>(
           sdp[1], va, db, K > 0);
     });
     wgmma_commit();

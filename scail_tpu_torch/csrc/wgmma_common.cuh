@@ -1,6 +1,7 @@
-// Hopper building blocks of the wgmma kernels (flash_attention_bwd.cu,
-// flash_attention_int8.cu, w8a16_matmul.cu): TMA tile copies and bulk copies
-// completed on mbarriers, cp.async copies for strides TMA cannot take,
+// Hopper building blocks of the wgmma kernels (flash_attention.cu,
+// flash_attention_bwd.cu, flash_attention_int8.cu, w8a16_matmul.cu): TMA tile
+// copies and bulk copies completed on mbarriers, cp.async copies for strides
+// TMA cannot take, named barriers and the async-proxy fence,
 // warpgroup matrix multiplies (wgmma, bf16 and s8) with operands described in
 // shared memory, and the host-side construction of the TMA tensor maps.
 //
@@ -81,6 +82,19 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// ---- named barriers and proxy fences ---------------------------------------
+// Wait until `threads` threads (a multiple of 32) have reached barrier `id`
+// (1-15; 0 is __syncthreads).
+__device__ __forceinline__ void named_bar_sync(int id, int threads) {
+  asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
+}
+
+// Make this thread's ordinary shared-memory writes visible to the async
+// proxy (wgmma operand reads, TMA); a barrier after it orders the readers.
+__device__ __forceinline__ void fence_proxy_async_smem() {
+  asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
 // ---- TMA ------------------------------------------------------------------
 // Copy the box at coordinates (c0, c1, c2, c3) of a 4-d tensor map into
 // shared memory; completion is counted in bytes on `bar`.  Elements outside
@@ -138,6 +152,12 @@ constexpr uint32_t kDescHi = (1024 >> 4) | (1u << 30);
 
 __device__ __forceinline__ uint32_t desc_lo(uint32_t addr, uint32_t lbo) {
   return ((addr & 0x3FFFF) >> 4) | ((lbo >> 4) << 16);
+}
+
+// Byte offset of k-step kk (16 columns of the head dim) in a K-major bf16
+// tile whose two column halves are `half` bytes apart.
+__host__ __device__ constexpr int kmajor_off(int kk, int half) {
+  return (kk / 4) * half + (kk % 4) * 32;
 }
 
 // f(std::integral_constant<int, 0>{}), ..., f(...<N - 1>{}): an unrolled loop
@@ -203,6 +223,34 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss(float (&d)[32], uint32_t a_lo
         "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31])
       : "r"(a_lo), "r"(b_lo), "r"(accumulate), "n"(OffA >> 4), "n"(OffB >> 4),
         "n"(kDescHi));
+}
+
+// wgmma_m64n64k16_ss with the accumulate flag fixed at compile time: without
+// ACCUMULATE the old D is not an input, so its registers are free until the
+// product lands (the first k-step of a score tile).
+template <int OffA, int OffB, bool ACCUMULATE>
+__device__ __forceinline__ void wgmma_m64n64k16_ss_c(float (&d)[32], uint32_t a_lo,
+                                                     uint32_t b_lo) {
+  if constexpr (ACCUMULATE) {
+    wgmma_m64n64k16_ss<OffA, OffB>(d, a_lo, b_lo, 1);
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b32 lo;\n.reg .b64 da, db;\n"
+        "setp.ne.b32 p, %37, 0;\n"
+        "add.u32 lo, %32, %34;\n"
+        "mov.b64 da, {lo, %36};\n"
+        "add.u32 lo, %33, %35;\n"
+        "mov.b64 db, {lo, %36};\n"
+        "wgmma.mma_async.sync.aligned.m64n64k16.f32.bf16.bf16 {"
+        "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+        "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31"
+        "}, da, db, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "r"(a_lo), "r"(b_lo), "n"(OffA >> 4), "n"(OffB >> 4), "n"(kDescHi), "r"(0));
+  }
 }
 
 // D (64 x 192, f32) += A (64 x 16) * B (16 x 192), A bf16 in registers (the

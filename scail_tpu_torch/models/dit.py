@@ -182,13 +182,13 @@ class DiTConfig:
                                  f"{ATTN_IMPLS}")
         if self.remat and self.remat_policy in UNPORTED_REMAT:
             raise NotImplementedError(f"remat_policy={self.remat_policy!r} is not ported: "
-                                      "ROADMAP Queue 1 item 12 (remat policies that save "
+                                      "ROADMAP Queue 1 item 12a (remat policies that save "
                                       "the flash outputs)")
         if self.remat and self.remat_policy != "default":
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
         if self.num_experts > 1:
             raise NotImplementedError("MoE MLP (num_experts > 1) is not ported: "
-                                      "ROADMAP Queue 2, MoE dispatch")
+                                      "ROADMAP Queue 1, item 15 (ops/moe.py)")
         if self.patch_size[0] != 1:
             raise NotImplementedError("temporal patching > 1 is not used by SCAIL configs")
 

@@ -310,7 +310,9 @@ def flash_attention(q, k, v, *, scale=None, rope=None, rope_interleaved=True):
     mode = 0
     cos = sin = None
     if rope is not None:
+        # contiguous f32 rows on 16-byte boundaries: the kernel reads them as float4
         cos, sin = (t.to(device=q.device, dtype=torch.float32).contiguous() for t in rope)
+        cos, sin = (t.clone() if t.data_ptr() % 16 else t for t in (cos, sin))
         if cos.shape != (sq, d) or sin.shape != (sq, d):
             raise ValueError(f"rope tables {tuple(cos.shape)} do not fit q {tuple(q.shape)}")
         mode = 1 if rope_interleaved else 2

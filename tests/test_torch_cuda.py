@@ -49,6 +49,98 @@ def test_flash_attention_kernel_matches_plain(cuda, rope):
     _assert_close(lse, want_lse, lse=True)
 
 
+def _tables(gen, s, interleaved):
+    """Rotary tables (s, 128) f32 whose angles differ in every row."""
+    ang = torch.randn(s, 64, generator=gen, device="cuda")
+    ang = ang.repeat_interleave(2, -1) if interleaved else torch.cat([ang, ang], -1)
+    return ang.cos(), ang.sin()
+
+
+def _check_flash(q, k, v, rope=None, interleaved=True):
+    """K1 (rope tables given) or K2 against its plain version on the same bf16
+    inputs, so that both round q and P where the Pallas kernels do, with its
+    launch counted once; then a second call for the same bits."""
+    name = "flash_attention" if rope is None else "flash_attention_rope"
+    before = dict(A.LAUNCHES)
+    out, lse = A.flash_attention(q, k, v, rope=rope, rope_interleaved=interleaved)
+    torch.cuda.synchronize()
+    assert {n: c - before[n] for n, c in A.LAUNCHES.items() if c != before[n]} == {name: 1}
+    want, want_lse = A.flash_attention_plain(q, k, v, rope=rope, rope_interleaved=interleaved)
+    _assert_close(out, want)
+    _assert_close(lse, want_lse, lse=True)
+    again, again_lse = A.flash_attention(q, k, v, rope=rope, rope_interleaved=interleaved)
+    assert torch.equal(out, again) and torch.equal(lse, again_lse)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [False, True], ids=["norope", "interleaved"])
+@pytest.mark.parametrize("sq", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 127, 128, 129])
+def test_flash_attention_ragged_tiles(cuda, sq, skv, rope):
+    """Both sides of the 64-row kv stages and of the 128-row q tile (two
+    consumer warpgroups of 64): every q and kv tail, Sq != Skv."""
+    q = _rnd(cuda, 1, sq, 2, 128)
+    k, v = _rnd(cuda, 1, skv, 2, 128), _rnd(cuda, 1, skv, 2, 128)
+    _check_flash(q, k, v, _tables(cuda, sq, True) if rope else None)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleaved", [True, False])
+def test_flash_attention_ropes_every_row_in_both_modes(cuda, interleaved):
+    """Tables that differ in every row, both rope modes, 1,100 q rows x 64
+    heads: a q tile read by the products before its rotation lands (a
+    missing proxy fence or barrier) is off by the whole rotary."""
+    q, k, v = (_rnd(cuda, 1, 1100, 64, 128) for _ in range(3))
+    _check_flash(q, k, v, _tables(cuda, 1100, interleaved), interleaved)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("rope", [False, True], ids=["norope", "interleaved"])
+def test_flash_attention_takes_head_strided_views(cuda, rope):
+    """q, k and v as the DiT hands them over: (b, s, n, 128) column slices of
+    one (b, s, 3 n 128) qkv projection; the same bits as on contiguous copies."""
+    b, s, n = 2, 300, 3
+    qkv = _rnd(cuda, b, s, 3 * n * 128).unflatten(-1, (3 * n, 128))
+    q, k, v = qkv[:, :, :n], qkv[:, :, n:2 * n], qkv[:, :, 2 * n:]
+    tabs = _tables(cuda, s, True) if rope else None
+    _check_flash(q, k, v, tabs)
+    got = A.flash_attention(q, k, v, rope=tabs)
+    want = A.flash_attention(*(t.contiguous() for t in (q, k, v)), rope=tabs)
+    assert all(torch.equal(g, w) for g, w in zip(got, want))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("interleaved", [True, False])
+def test_flash_attention_at_40_heads(cuda, interleaved):
+    """The 14B's 40 heads at CFG batch 2, q and kv tails."""
+    q, k, v = _rnd(cuda, 2, 700, 40, 128), _rnd(cuda, 2, 700, 40, 128), \
+        _rnd(cuda, 2, 700, 40, 128)
+    _check_flash(q, k, v, _tables(cuda, 700, interleaved), interleaved)
+
+
+@pytest.mark.cuda
+def test_flash_attention_on_the_ref_row_grid(cuda):
+    """K2 as the STA path calls it: the last 1,792 q rows (a strided view)
+    against a longer kv run, 2 x 12 heads: 14 x 24 CTAs, under three waves."""
+    k, v = _rnd(cuda, 2, 6000, 12, 128), _rnd(cuda, 2, 6000, 12, 128)
+    q = _rnd(cuda, 2, 6000, 12, 128)[:, -1792:]
+    _check_flash(q, k, v)
+
+
+@pytest.mark.cuda
+def test_flash_attention_wrapper_rejects_rows_off_16_bytes(cuda):
+    """TMA reads rows on 16-byte strides: a head or row stride that is no
+    multiple of 8 bf16 values raises before any launch."""
+    before = dict(A.LAUNCHES)
+    wide = _rnd(cuda, 1, 64, 2, 132)[..., :128]  # head stride 132 values = 264 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flash_attention(wide, wide, wide)
+    rows = _rnd(cuda, 1, 64, 2 * 128 + 4)[..., :256].unflatten(-1, (2, 128))  # row 520 bytes
+    with pytest.raises(ValueError, match="16-byte"):
+        A.flash_attention(rows, rows, rows)
+    assert A.LAUNCHES == before
+
+
 @pytest.mark.cuda
 def test_dual_cross_attention_kernel_matches_plain(cuda):
     q = _rnd(cuda, 2, 200, 2, 128)

@@ -7,6 +7,9 @@ where the port's attention wrappers take their plain versions.  Tolerance
 2e-4: the JAX package's own interpret-mode DiT test uses the same.
 """
 
+import re
+from pathlib import Path
+
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -104,3 +107,19 @@ def test_moe_and_remat_training_raise():
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             DiT(DiTConfig(**TINY, remat=True, remat_policy=policy))
     DiT(DiTConfig(**TINY, remat=False, remat_policy="save_attn"))  # ignored without remat
+
+
+@pytest.mark.parametrize("field, item, heading", [
+    (dict(num_experts=2), "ROADMAP Queue 1, item 15 (ops/moe.py)", "**Item 15 "),
+    (dict(remat=True, remat_policy="save_attn"), "ROADMAP Queue 1 item 12a", "**Item 12a "),
+])
+def test_unported_features_cite_roadmap_items_that_hold_them(field, item, heading):
+    """The errors name the ROADMAP item that holds the work, and that item is
+    in ROADMAP.md's Queue 1 (MoE under item 15 beside ops/moe.py)."""
+    with pytest.raises(NotImplementedError) as err:
+        DiT(DiTConfig(**TINY, **field))
+    assert item in str(err.value)
+    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
+    queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
+    section = re.split(r"\n\d+\. \*\*Item", queue1.split(heading, 1)[1])[0]
+    assert ("ops/moe.py" if "moe" in item else "remat") in section

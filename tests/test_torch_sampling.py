@@ -364,6 +364,37 @@ def test_profiler_groups_kernels_and_needs_cuda(tmp_path):
             profile.main(["--out", str(tmp_path)])
 
 
+_SIG = "(CUtensorMap_st, CUtensorMap_st, CUtensorMap_st, float const*, float const*, "
+
+
+@pytest.mark.parametrize("name, group", [
+    ("void scail::flash_fwd_kernel<1>" + _SIG, "flash_attention"),
+    ("void scail::flash_fwd_kernel<2>" + _SIG, "flash_attention"),
+    ("void scail::flash_fwd_kernel<0>" + _SIG, "flash_attention_norope"),
+    ("void scail::flash_int8_kernel(CUtensorMap_st, CUtensorMap_st", "flash_attention_int8"),
+    ("void scail::flash_bwd_dq_kernel<2>(CUtensorMap_st, CUtensorMap_st", "flash_attention_bwd"),
+])
+def test_profiler_groups_the_wgmma_flash_forward(name, group):
+    """K1 (flash_fwd_kernel<1> and <2>) and K2 (<0>) under the names the
+    profiler reads for the wgmma kernel, which takes tensor maps: each in its
+    own group, and no other kernel in theirs."""
+    from scail_tpu_torch.cli import profile
+
+    assert profile._group(name) == group
+
+
+def test_profiler_reads_clock_and_power_samples():
+    """The SM clock and board power beside a profiled call: nvidia-smi's
+    `clocks.sm, power.draw` lines, unreadable ones skipped."""
+    from scail_tpu_torch.cli import profile
+
+    stats = profile._clock_stats(["1980, 310.52", "1755, 699.10", "[N/A], [N/A]", "",
+                                  "1830, 650.00"])
+    assert stats == {"samples": 3, "sm_clock_mhz_mean": 1855.0, "sm_clock_mhz_min": 1755.0,
+                     "power_w_mean": (310.52 + 699.10 + 650.00) / 3, "power_w_max": 699.10}
+    assert profile._clock_stats(["[N/A], [N/A]"]) is None
+
+
 # modules of JAX or of the JAX package (but not of scail_tpu_torch)
 _FOREIGN = ("m == 'jax' or m.startswith('jax.') or m == 'scail_tpu' "
             "or m.startswith('scail_tpu.')")
