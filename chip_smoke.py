@@ -77,11 +77,19 @@ main-path shape, and the bound: the larger of bytes moved over 3.35 TB/s and
 the operations over the card's dense rates (989 TFLOP/s bf16 and 1,979 TOP/s
 int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  K1's
 and K2's entries add their rate (`tflops`) and `share_of_bound` (the bound
-over the kernel's time).  The last line is {"ok": true, "device": ...}.
+over the kernel's time); the four sliding-tile entries (K7, K8) add the
+same and the registers and spill bytes of their kernels from the build log
+(the log gives the time of their first, mma.sync design beside the new one,
+and K8 dk/dv's time with its CTAs launched in block order beside the
+heaviest-first order it runs).  The build fails the
+run on a spill in a kernel built from csrc/flash_bodies.cuh (K1, K2, K5, K7,
+K8) or on any ptxas C7515 / C7512 note (serialised wgmmas).  The last line
+is {"ok": true, "device": ...}.
 """
 
 import json
 import os
+import re
 import subprocess
 import sys
 import time
@@ -199,17 +207,52 @@ def phase_device():
     return card
 
 
+# ptxas's report of each kernel in the build log: mangled name ->
+# {"registers": n, "spill_bytes": stores + loads}
+PTXAS = {}
+
+
+def ptxas_usage(log_text):
+    """Registers and spill bytes of every entry function in an `nvcc -Xptxas
+    -v` log, and the lines that carry a C7515 / C7512 note (wgmmas
+    serialised, or serialised for spills)."""
+    usage, notes, fn = {}, [], None
+    for ln in log_text.splitlines():
+        m = re.search(r"Compiling entry function '(\S+)'", ln)
+        if m:
+            fn = m.group(1)
+            usage[fn] = {"registers": None, "spill_bytes": 0}
+        elif fn and (m := re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)):
+            usage[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
+        elif fn and (m := re.search(r"Used (\d+) registers", ln)):
+            usage[fn]["registers"] = int(m.group(1))
+        if "C7515" in ln or "C7512" in ln:
+            notes.append(ln.strip())
+    return usage, notes
+
+
+def kernel_usage(*names):
+    """{registers, spill_bytes} of the kernels whose mangled names hold any of
+    `names` (one entry per instantiation)."""
+    return {fn: u for fn, u in PTXAS.items() if any(n in fn for n in names)}
+
+
 def phase_build():
     from scail_tpu_torch.ops import cuda_build
 
     info = cuda_build.build()
     cuda_build.lib()
-    lines = info["log"].splitlines()
-    regs = [ln.strip() for ln in lines if "registers" in ln]
-    spills = [ln.strip() for ln in lines
-              if "spill" in ln and " 0 bytes spill stores, 0 bytes spill loads" not in ln]
+    usage, notes = ptxas_usage(info["log"])
+    PTXAS.update(usage)
+    spills = {fn: u for fn, u in usage.items() if u["spill_bytes"]}
     log(f"built {os.path.relpath(info['path'], ROOT)} in {info['seconds']:.2f} s "
-        f"(cached={info['cached']}); ptxas: {regs}; spills: {spills or 'none'}")
+        f"(cached={info['cached']}); ptxas registers: "
+        + ", ".join(f"{fn[:60]} {u['registers']}" for fn, u in usage.items())
+        + f"; spills: {spills or 'none'}; C7515/C7512 notes: {notes or 'none'}")
+    body_spills = kernel_usage(*FLASH_BODY_KERNELS)
+    body_spills = {fn: u for fn, u in body_spills.items() if u["spill_bytes"]}
+    if body_spills or notes:
+        fail(f"ptxas spilled or serialised wgmmas: {body_spills} {notes}")
     return info["seconds"]
 
 
@@ -485,7 +528,17 @@ PARENT_MS = {"w8a16_matmul": {"qkv": 74.48, "mlp_in": 67.35, "mlp_out": 65.88,
              "w4a16_matmul": {"qkv": 67.61, "mlp_in": 60.70, "mlp_out": 60.98,
                               "attn_out": 22.74, "cross_kv": 0.554},
              "flash_attention_int8": 656.48,
-             "flash_attention_rope": 175.73, "flash_attention": 7.522}
+             "flash_attention_rope": 175.73, "flash_attention": 7.522,
+             # the first, mma.sync design of K7 / K8, one layer's two calls
+             "sta_attention_fwd": 47.92, "sta_attention_fwd_lse": 24.79,
+             "sta_attention_bwd_dq": 33.79, "sta_attention_bwd_dkv": 44.34}
+# the kernels built from csrc/flash_bodies.cuh (K1, K2, K5, K7, K8): no spills
+FLASH_BODY_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
+                      "sta_fwd_kernel", "sta_bwd_dq_kernel", "sta_bwd_dkv_kernel")
+# the kernels of each sliding-tile entry in the build log
+STA_KERNELS = {"sta_attention_fwd": "sta_fwd_kernel", "sta_attention_fwd_lse": "sta_fwd_kernel",
+               "sta_attention_bwd_dq": "sta_bwd_dq_kernel",
+               "sta_attention_bwd_dkv": "sta_bwd_dkv_kernel"}
 
 
 def _rows_view(t):
@@ -803,12 +856,17 @@ def _sta_kernels(gen, rnd, f32):
 
     def record(key, err, ms, plain_ms, flops, moved, lib_ms):
         b_ms, b_by = bound(flops, moved)
-        log(f"{key} (video + pose call): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s), "
+        usage = kernel_usage(STA_KERNELS[key])
+        log(f"{key} (video + pose call): kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, "
+            f"{b_ms / ms:.1%} of bound; mma.sync design {PARENT_MS[key]} ms), "
             f"plain {plain_ms:.3f} ms, SDPA with the block mask "
             f"{'none: ' + lib_err[key] if lib_ms is None else f'{lib_ms:.3f} ms'}, "
-            f"bound {b_ms:.3f} ms ({b_by})")
+            f"bound {b_ms:.3f} ms ({b_by}); ptxas {usage}")
         results[key] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms,
-                            bound_by=b_by, library_ms=lib_ms)
+                            bound_by=b_by, library_ms=lib_ms, tflops=flops / ms / 1e9,
+                            share_of_bound=b_ms / ms,
+                            registers=sorted({u["registers"] for u in usage.values()}),
+                            spill_bytes=sum(u["spill_bytes"] for u in usage.values()))
 
     # sampling: K7 without the LSE (timed), and with it, batch 2
     q, k, v = rnd(2, s, 12, 128), rnd(2, s, 12, 128), rnd(2, s, 12, 128)
@@ -829,6 +887,9 @@ def _sta_kernels(gen, rnd, f32):
         compare(f"sta fwd+lse {name} {tag} lse", lse, plse, lse=True)
         if not torch.equal(o, ol):
             fail(f"sta fwd {name}: the outputs with and without the LSE differ")
+        if not torch.equal(o, S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts,
+                                                 ts_q=ts_q)[0]):
+            fail(f"sta fwd {name}: two calls give different bits")
         del po, plse, ol, lse
         acc["ms"] += timed_ms(lambda: S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts,
                                                          ts_q=ts_q))
@@ -852,7 +913,7 @@ def _sta_kernels(gen, rnd, f32):
     scale = 128 ** -0.5
     fwd = dict(err=lse_err, ms=0.0, plain_ms=0.0, flops=0, moved=0, lib=0.0)
     bwd = {g: dict(err=0.0, ms=0.0, plain_ms=0.0, flops=0, moved=0) for g in ("dq", "dkv")}
-    bwd_lib = 0.0
+    bwd_lib, dkv_block_ms = 0.0, 0.0
     for name, rows, ts_q in calls:
         qc, dc = q[:, rows], do[:, rows]
         o, lse = S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q,
@@ -879,8 +940,15 @@ def _sta_kernels(gen, rnd, f32):
         q2, lse2, delta = A._bwd_operands(qc, o, lse, dc, scale)
         ops = (q2, k, v, dc, lse2.contiguous(), delta.contiguous())
         dq = S.sta_windowed_bwd_dq(*ops, tables.table, ts=plan.ts, ts_q=ts_q, scale=scale)
-        dk, dv = S.sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q)
+        dk, dv = S.sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q,
+                                        dkv_order=tables.dkv_order)
+        again = (S.sta_windowed_bwd_dq(*ops, tables.table, ts=plan.ts, ts_q=ts_q, scale=scale),
+                 *S.sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q,
+                                         dkv_order=tables.dkv_order))
         torch.cuda.synchronize()
+        if not all(torch.equal(x, y) for x, y in zip((dq, dk, dv), again)):
+            fail(f"sta bwd {name}: two calls give different bits")
+        del again
         pdq = S.sta_windowed_bwd_plain(qc, k, v, o, lse, dc, tables, ts=plan.ts, ts_q=ts_q,
                                        grads="dq")[0]
         bwd["dq"]["err"] = max(bwd["dq"]["err"], compare(f"sta bwd dq {name} {tag}", dq, pdq,
@@ -895,6 +963,8 @@ def _sta_kernels(gen, rnd, f32):
         bwd["dq"]["ms"] += timed_ms(lambda: S.sta_windowed_bwd_dq(
             *ops, tables.table, ts=plan.ts, ts_q=ts_q, scale=scale))
         bwd["dkv"]["ms"] += timed_ms(lambda: S.sta_windowed_bwd_dkv(
+            *ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q, dkv_order=tables.dkv_order))
+        dkv_block_ms += timed_ms(lambda: S.sta_windowed_bwd_dkv(
             *ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q))
         for g in ("dq", "dkv"):
             bwd[g]["plain_ms"] += timed_ms(lambda: S.sta_windowed_bwd_plain(
@@ -914,6 +984,8 @@ def _sta_kernels(gen, rnd, f32):
         lib_err[f"sta_attention_bwd_{g}"] = lib_err["sta_attention_bwd"]
         record(f"sta_attention_bwd_{g}", bwd[g]["err"], bwd[g]["ms"], bwd[g]["plain_ms"],
                bwd[g]["flops"], bwd[g]["moved"], bwd_lib)
+    log(f"sta_attention_bwd_dkv launch order (video + pose call): heaviest first "
+        f"{bwd['dkv']['ms']:.3f} ms, block order {dkv_block_ms:.3f} ms")
     for key, err in lib_err.items():
         if err and key in results:
             results[key]["library_error"] = err

@@ -23,7 +23,7 @@ CSRC_DIR = Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "scail_tpu_torch"
 SOURCES = ("flash_attention.cu", "flash_attention_bwd.cu", "dual_cross_attention.cu",
            "sta_attention.cu", "flash_attention_int8.cu", "w8a16_matmul.cu", "fused_norms.cu")
-HEADERS = ("mma_common.cuh", "flash_bwd_common.cuh", "wgmma_common.cuh")
+HEADERS = ("mma_common.cuh", "wgmma_common.cuh", "flash_bodies.cuh")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
               "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
@@ -115,7 +115,7 @@ def lib() -> ctypes.CDLL:
             cdll.scail_sta_attention_bwd_dq.argtypes = (
                 [_P] * 8 + [_I] * 7 + [_L] * 15 + [_F, _P])
             cdll.scail_sta_attention_bwd_dq.restype = _I
-            cdll.scail_sta_attention_bwd_dkv.argtypes = [_P] * 10 + [_I] * 7 + [_L] * 18 + [_P]
+            cdll.scail_sta_attention_bwd_dkv.argtypes = [_P] * 11 + [_I] * 8 + [_L] * 18 + [_P]
             cdll.scail_sta_attention_bwd_dkv.restype = _I
             cdll.scail_flash_attention_int8_fwd.argtypes = [_P] * 7 + [_I] * 4 + [_L] * 12 + [_P]
             cdll.scail_flash_attention_int8_fwd.restype = _I

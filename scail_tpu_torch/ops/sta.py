@@ -250,6 +250,30 @@ class StaTables(NamedTuple):
     table: torch.Tensor   # (n_tiles, n_steps) kv blocks of each q tile, visiting order
     inv: torch.Tensor     # (n_blocks, inv_len) q tiles attending each kv block
     lens: torch.Tensor    # (n_blocks,) valid entries of each inv row
+    dkv_order: torch.Tensor  # (n_ctas, 2) dk/dv launch order: (kv block, chunk), heaviest first
+
+
+# kv rows of one dk/dv CTA (csrc/flash_bodies.cuh k5::kDkvRows)
+DKV_ROWS = 128
+
+
+def dkv_launch_order(lens, ts: int, skv: int) -> np.ndarray:
+    """(n_ctas, 2) int32: the (kv block, 128-row chunk) of every dk/dv CTA
+    that holds rows of the sequence, blocks attended by the most q tiles
+    first (ties in block order).  A block's CTAs all walk its lens[blk] q
+    tiles, so the longest CTAs start first and the short ones fill the tail."""
+    lens = np.asarray(lens)
+    pairs = [(j, c) for j in np.argsort(-lens, kind="stable").tolist()
+             for c in range(-(-min(ts, skv - j * ts) // DKV_ROWS))]
+    return np.asarray(pairs, np.int32).reshape(-1, 2)
+
+
+@lru_cache(maxsize=None)
+def _block_order(ts: int, skv: int, device: str) -> torch.Tensor:
+    """The dk/dv CTAs in block order, on `device`: what the kernel runs when
+    it is given no order."""
+    lens = np.zeros(-(-skv // ts), np.int32)
+    return torch.from_numpy(dkv_launch_order(lens, ts, skv)).to(device)
 
 
 @dataclasses.dataclass(frozen=True, eq=False)  # hashed by identity: one per geometry
@@ -264,6 +288,7 @@ class StaPlan:
     table: np.ndarray
     inv: np.ndarray
     lens: np.ndarray
+    dkv_order: np.ndarray
 
     def tables(self, device) -> StaTables:
         return _device_tables(self, str(device))
@@ -271,7 +296,8 @@ class StaPlan:
 
 @lru_cache(maxsize=None)
 def _device_tables(plan: StaPlan, device: str) -> StaTables:
-    return StaTables(*(torch.from_numpy(a).to(device) for a in (plan.table, plan.inv, plan.lens)))
+    return StaTables(*(torch.from_numpy(a).to(device)
+                       for a in (plan.table, plan.inv, plan.lens, plan.dkv_order)))
 
 
 @lru_cache(maxsize=None)
@@ -301,7 +327,7 @@ def sta_plan(grid_thw: Tuple[int, int, int], ref_len: int, pose_len: int,
     inv, lens = _inverse_table(table, n_blocks)
     order, inverse = sta_order(grid_thw, ref_len, pose_len, tile, windowed_pose=windowed_pose)
     return StaPlan(ts, sv, pose_len, order.astype(np.int64), inverse.astype(np.int64), table,
-                   inv, lens)
+                   inv, lens, dkv_launch_order(lens, ts, ref_len + sv + pose_len))
 
 
 def block_rows(blocks, ts: int, skv: int, device) -> torch.Tensor:
@@ -383,11 +409,13 @@ def _check_call(q, k, v, ts, ts_q):
                          f"ts {ts}, ts_q {ts_q}")
 
 
-def _check_table(name, t, device, rows):
+def _check_table(name, t, device, shape):
+    """shape: the sizes the kernel needs, None where any size goes."""
     if t.device != device or t.dtype != torch.int32 or not t.is_contiguous() or \
-            t.shape[0] != rows:
-        raise ValueError(f"{name}: the kernels take a contiguous int32 table of {rows} rows on "
-                         f"{device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
+            t.dim() != len(shape) or t.numel() == 0 or \
+            any(want is not None and got != want for got, want in zip(t.shape, shape)):
+        raise ValueError(f"{name}: the kernels take a non-empty contiguous int32 table of shape "
+                         f"{shape} on {device}, got {t.dtype} {tuple(t.shape)} on {t.device}")
 
 
 def sta_windowed_fwd(q, k, v, table, *, ts: int, ts_q: int, scale=None, with_lse=False):
@@ -403,7 +431,7 @@ def sta_windowed_fwd(q, k, v, table, *, ts: int, ts_q: int, scale=None, with_lse
         raise NotImplementedError(f"sta_windowed_fwd: no kernel for device {q.device}")
     _check_call(q, k, v, ts, ts_q)
     b, sq, n, d = q.shape
-    _check_table("table", table, q.device, sq // ts_q)
+    _check_table("table", table, q.device, (sq // ts_q, None))
     out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)
     lse = torch.empty((b, n, sq), dtype=torch.float32, device=q.device) if with_lse else None
     rc = cuda_build.lib().scail_sta_attention_fwd(
@@ -432,7 +460,7 @@ def sta_windowed_bwd_dq(q2, k, v, do, lse2, delta, table, *, ts: int, ts_q: int,
     delta): walks the forward's table."""
     _check_bwd(q2, k, v, do, lse2, delta, ts, ts_q)
     b, sq, n, _ = q2.shape
-    _check_table("table", table, q2.device, sq // ts_q)
+    _check_table("table", table, q2.device, (sq // ts_q, None))
     dq = torch.empty(q2.shape, dtype=q2.dtype, device=q2.device)
     rc = cuda_build.lib().scail_sta_attention_bwd_dq(
         q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
@@ -444,20 +472,28 @@ def sta_windowed_bwd_dq(q2, k, v, do, lse2, delta, table, *, ts: int, ts_q: int,
     return dq
 
 
-def sta_windowed_bwd_dkv(q2, k, v, do, lse2, delta, inv, lens, *, ts: int, ts_q: int):
-    """The K8 dk/dv kernel on _bwd_operands' inputs: walks the inverse table.
-    Returns (dk, dv) over every kv row."""
+def sta_windowed_bwd_dkv(q2, k, v, do, lse2, delta, inv, lens, *, ts: int, ts_q: int,
+                         dkv_order=None):
+    """The K8 dk/dv kernel on _bwd_operands' inputs: walks the inverse table,
+    its CTAs launched in `dkv_order` (StaTables.dkv_order, heaviest first;
+    None launches them in block order).  Returns (dk, dv) over every kv row."""
     _check_bwd(q2, k, v, do, lse2, delta, ts, ts_q)
     b, sq, n, _ = q2.shape
     n_blocks = -(-k.shape[1] // ts)
-    _check_table("inv", inv, q2.device, n_blocks)
-    _check_table("lens", lens, q2.device, n_blocks)
+    _check_table("inv", inv, q2.device, (n_blocks, None))
+    _check_table("lens", lens, q2.device, (n_blocks,))
+    order = (_block_order(ts, k.shape[1], str(q2.device)) if dkv_order is None
+             else dkv_order)
+    _check_table("dkv_order", order, q2.device, (None, 2))
+    if order.shape[0] > 65535:
+        raise ValueError(f"dkv_order: at most 65535 dk/dv CTAs, got {order.shape[0]}")
     dk = torch.empty(k.shape, dtype=k.dtype, device=k.device)
     dv = torch.empty(v.shape, dtype=v.dtype, device=v.device)
     rc = cuda_build.lib().scail_sta_attention_bwd_dkv(
         q2.data_ptr(), k.data_ptr(), v.data_ptr(), do.data_ptr(), lse2.data_ptr(),
-        delta.data_ptr(), inv.data_ptr(), lens.data_ptr(), dk.data_ptr(), dv.data_ptr(), b, n,
-        sq, k.shape[1], ts_q, ts, inv.shape[1], *_strides(q2), *_strides(k), *_strides(v),
+        delta.data_ptr(), inv.data_ptr(), lens.data_ptr(), order.data_ptr(), dk.data_ptr(),
+        dv.data_ptr(), b, n, sq, k.shape[1], ts_q, ts, inv.shape[1], order.shape[0],
+        *_strides(q2), *_strides(k), *_strides(v),
         *_strides(do), *_strides(dk), *_strides(dv), _stream(q2.device))
     cuda_build.check(rc, "sta_attention_bwd_dkv")
     LAUNCHES["sta_attention_bwd_dkv"] += 1
@@ -477,7 +513,8 @@ def sta_windowed_bwd(q, k, v, out, lse, do, tables: StaTables, *, ts: int, ts_q:
     q2, lse2, delta = _bwd_operands(q, out, lse, do, scale)
     ops = (q2, k, v, do, lse2.contiguous(), delta.contiguous())
     return (sta_windowed_bwd_dq(*ops, tables.table, ts=ts, ts_q=ts_q, scale=scale),
-            *sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=ts, ts_q=ts_q))
+            *sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=ts, ts_q=ts_q,
+                                  dkv_order=tables.dkv_order))
 
 
 class _StaWindowed(torch.autograd.Function):

@@ -7,6 +7,7 @@ Limits: those of scail_tpu_torch.ops.attention.error_vs_plain, scaled to the
 plain output (bf16 rounding of q, of P before P V and of the output).
 """
 
+import numpy as np
 import pytest
 import torch
 
@@ -279,12 +280,21 @@ def test_kernel_wrappers_reject_what_the_kernels_do_not_take(cuda):
 
 
 # sliding-tile attention (K7, K8): (grid_thw, ref_len, pose_len, tile, window,
-# pose_kv_window, batch).  'ragged': kv blocks of 32 rows and pose q tiles of
-# 8, so 64-row chunks straddle tiles and blocks, and a short ref tail;
-# 'production_rows': ts 1344 and pose tiles of 336 rows, as at 48,832 tokens
+# pose_kv_window, batch, heads).  'ragged': kv blocks of 32 rows and pose q
+# tiles of 8, so a 64-row stage straddles two blocks, a 128-row CTA holds one
+# 8-row tile (its second warpgroup has no live row), and a ref tail of 4 rows;
+# 'straddle_ts96': blocks of 96 rows (a stage of 64 live rows, then one of
+# 32), pose tiles of 24, a short last block of 50 rows; 'production_rows':
+# ts 1344 and pose tiles of 336 rows, as at 48,832 tokens (a video tile ends
+# 64 rows into its 11th CTA, a pose tile 80 rows into its 3rd);
+# 'production_rows_wide': the same at 2 x 24 heads, where the dq kernel takes
+# 128-row CTAs (the dense kernel's wave rule), the 11th with a warpgroup of
+# no live rows
 STA_CASES = {
-    "ragged": ((2, 8, 16), 100, 64, (1, 2), (1, 2), 3, 2),
-    "production_rows": ((3, 8, 56), 8, 336, (3, 8), (1, 1), 0, 1),
+    "ragged": ((2, 8, 16), 100, 64, (1, 2), (1, 2), 3, 2, 2),
+    "straddle_ts96": ((2, 4, 48), 50, 96, (1, 2), (1, 2), 0, 2, 2),
+    "production_rows": ((3, 8, 56), 8, 336, (3, 8), (1, 1), 0, 1, 2),
+    "production_rows_wide": ((3, 8, 56), 8, 336, (3, 8), (1, 1), 0, 2, 24),
 }
 
 
@@ -293,11 +303,11 @@ STA_CASES = {
 def test_sta_kernels_match_plain(cuda, case):
     from scail_tpu_torch.ops import sta as S
 
-    grid, ref, pose, tile, window, pkw, b = STA_CASES[case]
+    grid, ref, pose, tile, window, pkw, b, heads = STA_CASES[case]
     plan = S.sta_plan(grid, ref, pose, tile, window, True, pkw)
     tables = plan.tables("cuda")
     s = ref + plan.video_len + pose
-    q, k, v, do = (_rnd(cuda, b, s, 2, 128) for _ in range(4))
+    q, k, v, do = (_rnd(cuda, b, s, heads, 128) for _ in range(4))
     sv = plan.video_len
     for qc, ts_q in ((q[:, :sv], plan.ts), (q[:, sv:sv + pose], plan.ts // 4)):
         dc = do[:, :qc.shape[1]]
@@ -333,7 +343,7 @@ def test_sta_attention_gradients_on_the_card_match_the_plain_path(cuda):
     same bf16 inputs, where they run the plain versions."""
     from scail_tpu_torch.ops import sta as S
 
-    grid, ref, pose, tile, window, pkw, _ = STA_CASES["ragged"]
+    grid, ref, pose, tile, window, pkw, _, _ = STA_CASES["ragged"]
     kw = dict(grid_thw=grid, ref_len=ref, pose_len=pose, tile=tile, window=window,
               windowed_pose=True, pose_kv_window=pkw)
     s = ref + grid[0] * grid[1] * grid[2] + pose
@@ -345,6 +355,134 @@ def test_sta_attention_gradients_on_the_card_match_the_plain_path(cuda):
         grads.append([t.grad for t in ts])
     for g, want in zip(*grads):
         _assert_close(g, want.to(g.device))
+
+
+def _sta_all(S, q, k, v, do, tables, ts, ts_q):
+    """The four STA entry points on one call: (out, lse, out without the
+    LSE, dq, dk, dv), synchronised."""
+    out, lse = S.sta_windowed_fwd(q, k, v, tables.table, ts=ts, ts_q=ts_q, with_lse=True)
+    out2, _ = S.sta_windowed_fwd(q, k, v, tables.table, ts=ts, ts_q=ts_q)
+    grads = S.sta_windowed_bwd(q, k, v, out, lse, do, tables, ts=ts, ts_q=ts_q)
+    torch.cuda.synchronize()
+    return (out, lse, out2, *grads)
+
+
+@pytest.mark.cuda
+def test_sta_kernels_skip_an_unattended_block_and_take_head_strided_slices(cuda):
+    """A hand-made table over kv blocks of 32 rows (the last of 4): block 2
+    is attended by no q tile (its dk/dv rows are zeros), the short last
+    block leads one row's walk, q tiles of 40 rows end inside a 64-row
+    chunk.  q/k/v/dO are head-strided slices of packed tensors: the results
+    equal those on contiguous copies bit for bit, match the plain versions,
+    and a second call gives the same bits."""
+    from scail_tpu_torch.ops import sta as S
+
+    ts, ts_q, skv = 32, 40, 420
+    table_np = np.asarray([[0, 1, 13], [3, 4, 5], [13, 6, 7], [8, 9, 10], [11, 12, 0]],
+                          np.int32)
+    inv, lens = S._inverse_table(table_np, -(-skv // ts))
+    assert lens[2] == 0 and lens[13] == 2
+    tables = S.StaTables(*(torch.from_numpy(a).cuda() for a in (
+        table_np, inv, lens, S.dkv_launch_order(lens, ts, skv))))
+    qd = _rnd(cuda, 2, 200, 2, 3, 128)   # q and dO packed with a third head group
+    kv = _rnd(cuda, 2, skv, 3, 3, 128)   # k and v packed
+    q, do, k, v = qd[:, :, 0], qd[:, :, 1], kv[:, :, 0], kv[:, :, 2]
+    assert not any(t.is_contiguous() for t in (q, do, k, v))
+    got = _sta_all(S, q, k, v, do, tables, ts, ts_q)
+    same = _sta_all(S, *(t.contiguous() for t in (q, k, v, do)), tables, ts, ts_q)
+    again = _sta_all(S, q, k, v, do, tables, ts, ts_q)
+    assert all(torch.equal(x, y) for x, y in zip(got, same))
+    assert all(torch.equal(x, y) for x, y in zip(got, again))
+    out, lse, out2, dq, dk, dv = got
+    assert torch.equal(out, out2)
+    want, want_lse = S.sta_windowed_plain(q.float(), k.float(), v.float(), tables.table, ts=ts,
+                                          ts_q=ts_q)
+    _assert_close(out, want)
+    _assert_close(lse, want_lse, lse=True)
+    plain = S.sta_windowed_bwd_plain(q, k, v, out, lse, do, tables, ts=ts, ts_q=ts_q)
+    for g, w in zip((dq, dk, dv), plain):
+        _assert_close(g, w)
+    assert not dk[:, 64:96].any() and not dv[:, 64:96].any()
+    # without an order the CTAs launch in block order: the same bits
+    q2, lse2, delta = A._bwd_operands(q, out, lse, do, 128 ** -0.5)
+    ops = (q2, k, v, do, lse2.contiguous(), delta.contiguous())
+    built = S.sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=ts, ts_q=ts_q)
+    assert all(torch.equal(x, y) for x, y in zip(built, (dk, dv)))
+
+
+@pytest.mark.cuda
+def test_sta_card_path_raises_without_its_kernels(cuda, monkeypatch):
+    """No fallback: when the kernels cannot be built, or a launch reports an
+    error, every STA entry point on the card raises; none runs the plain
+    version or moves to the CPU."""
+    from scail_tpu_torch.ops import cuda_build
+    from scail_tpu_torch.ops import sta as S
+
+    grid, ref, pose, tile, window, pkw, _, _ = STA_CASES["ragged"]
+    plan = S.sta_plan(grid, ref, pose, tile, window, True, pkw)
+    tables = plan.tables("cuda")
+    s = ref + plan.video_len + pose
+    q, k, v, do = (_rnd(cuda, 1, s, 2, 128) for _ in range(4))
+    qv, dv = q[:, :plan.video_len], do[:, :plan.video_len]
+    q2, lse2, delta = A._bwd_operands(qv, qv, torch.zeros(1, 2, plan.video_len, device="cuda"),
+                                      dv, 128 ** -0.5)
+    ops = (q2, k, v, dv, lse2.contiguous(), delta.contiguous())
+    calls = (
+        lambda: S.sta_windowed_fwd(qv, k, v, tables.table, ts=plan.ts, ts_q=plan.ts),
+        lambda: S.sta_windowed_fwd(qv, k, v, tables.table, ts=plan.ts, ts_q=plan.ts,
+                                   with_lse=True),
+        lambda: S.sta_windowed_bwd_dq(*ops, tables.table, ts=plan.ts, ts_q=plan.ts,
+                                      scale=128 ** -0.5),
+        lambda: S.sta_windowed_bwd_dkv(*ops, tables.inv, tables.lens, ts=plan.ts, ts_q=plan.ts,
+                                       dkv_order=tables.dkv_order),
+        lambda: S.sta_attention(q, k, v, grid_thw=grid, ref_len=ref, pose_len=pose, tile=tile,
+                                window=window, windowed_pose=True, pose_kv_window=pkw,
+                                pre_tiled=True),
+    )
+
+    def unbuildable():
+        raise RuntimeError("nvcc not found (set CUDA_HOME): the CUDA kernels cannot be built")
+
+    class Failing:
+        def __getattr__(self, name):
+            return lambda *args: 1  # cudaErrorInvalidValue
+
+    for lib in (unbuildable, Failing):
+        monkeypatch.setattr(cuda_build, "lib", lib)
+        before = dict(A.LAUNCHES)
+        for call in calls:
+            with pytest.raises(RuntimeError):
+                call()
+        assert A.LAUNCHES == before
+
+
+@pytest.mark.cuda
+def test_sta_wrappers_reject_what_the_kernels_do_not_take(cuda):
+    """Rows off 16 bytes, tables of the wrong type or shape, a dk/dv order
+    that is not (n, 2): a ValueError naming the shape, before any launch."""
+    from scail_tpu_torch.ops import sta as S
+
+    grid, ref, pose, tile, window, pkw, _, _ = STA_CASES["ragged"]
+    plan = S.sta_plan(grid, ref, pose, tile, window, True, pkw)
+    tables = plan.tables("cuda")
+    s = ref + plan.video_len + pose
+    q, k, v = (_rnd(cuda, 1, s, 2, 128) for _ in range(3))
+    qv = q[:, :plan.video_len]
+    kw = dict(ts=plan.ts, ts_q=plan.ts)
+    odd = _rnd(cuda, s * 2 * 128 + 4)[4:].view(1, s, 2, 128)  # 8 bytes off
+    with pytest.raises(ValueError, match="16-byte"):
+        S.sta_windowed_fwd(qv, odd, v, tables.table, **kw)
+    with pytest.raises(ValueError, match="int32"):
+        S.sta_windowed_fwd(qv, k, v, tables.table.long(), **kw)
+    with pytest.raises(ValueError, match="int32"):
+        S.sta_windowed_fwd(qv, k, v, tables.table[:-1], **kw)
+    with pytest.raises(ValueError, match="unsupported STA call"):
+        S.sta_windowed_fwd(q[:, :plan.video_len - 1], k, v, tables.table, **kw)
+    q2 = qv.contiguous()
+    lse2 = torch.zeros(1, 2, plan.video_len, device="cuda")
+    with pytest.raises(ValueError, match="dkv_order"):
+        S.sta_windowed_bwd_dkv(q2, k, v, q2, lse2, lse2, tables.inv, tables.lens, **kw,
+                               dkv_order=tables.dkv_order.reshape(-1))
 
 
 def _matmul_view(t):

@@ -40,3 +40,15 @@ def test_editing_any_header_changes_the_library_name(tmp_path, monkeypatch):
         assert cuda_build._digest() != base, name
         path.write_text(text)
     assert cuda_build._digest() == base
+
+
+def test_every_header_is_included_by_some_source():
+    """No dead header lingers in HEADERS: each is included by a source or by
+    a header that a source includes."""
+    included, todo = set(), list(cuda_build.SOURCES)
+    while todo:
+        for name in INCLUDE.findall((cuda_build.CSRC_DIR / todo.pop()).read_text()):
+            if name not in included:
+                included.add(name)
+                todo.append(name)
+    assert set(cuda_build.HEADERS) <= included, set(cuda_build.HEADERS) - included

@@ -384,3 +384,54 @@ def test_windowed_wrappers_take_plain_versions_on_cpu():
                                         ts=plan.ts, ts_q=plan.ts, scale=1 / math.sqrt(16))
     assert all(torch.equal(a, b) for a, b in zip(got, plain))
     assert all(n == 0 for n in tattn.LAUNCHES.values())
+
+
+# the dk/dv launch order: (geometry, windowed_pose, pose_kv_window), among
+# them the production plan and the card tests' ragged one (blocks of 32 rows)
+ORDER_CASES = {
+    "production": ("production", True, 3),
+    "production_rows": ("test_sta_misaligned", True, 0),
+    "dense_pose": ("test_sta", False, 0),
+    "ragged": (((2, 8, 16), 100, 64, (1, 2), (1, 2)), True, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(ORDER_CASES))
+def test_dkv_launch_order_is_every_cta_heaviest_first(case):
+    """Every (kv block, 128-row chunk) that holds rows of the sequence comes
+    once, the work of a CTA (the q tiles its block's inverse row lists) never
+    grows along the order, and the order travels with the plan's device
+    tables (built once, cached with them); without one the wrapper takes
+    the same CTAs in block order."""
+    geom, wp, pkw = ORDER_CASES[case]
+    grid, ref, pose, tile, window = GEOMS[geom] if isinstance(geom, str) else geom
+    plan = tsta.sta_plan(grid, ref, pose, tile, window, wp, pkw)
+    skv = ref + int(np.prod(grid)) + pose
+    n_blocks = -(-skv // plan.ts)
+    every = {(j, c) for j in range(n_blocks)
+             for c in range(-(-min(plan.ts, skv - j * plan.ts) // tsta.DKV_ROWS))}
+    order = plan.dkv_order
+    assert order.dtype == np.int32 and order.shape == (len(every), 2)
+    assert {tuple(p) for p in order.tolist()} == every
+    work = plan.lens[order[:, 0]]
+    assert np.all(np.diff(work) <= 0)
+    assert work[0] == plan.lens.max()
+    np.testing.assert_array_equal(
+        order, tsta.dkv_launch_order(plan.lens, plan.ts, skv))
+    tables = plan.tables("cpu")
+    assert tables is plan.tables("cpu")
+    assert tables.dkv_order.dtype == torch.int32 and tables.dkv_order.is_contiguous()
+    np.testing.assert_array_equal(tables.dkv_order.numpy(), order)
+    # the order of a call given none: the same CTAs in block order
+    blocks = tsta._block_order(plan.ts, skv, "cpu")
+    assert blocks is tsta._block_order(plan.ts, skv, "cpu")
+    assert [tuple(p) for p in blocks.tolist()] == sorted(every)
+
+
+def test_dkv_launch_order_at_production_puts_the_ref_blocks_first():
+    """Both ref blocks are attended by all 28 q tiles: their 11 + 4 CTAs (the
+    last block holds 448 rows) lead; no CTA past the sequence is launched."""
+    plan = tsta.sta_plan(*GEOMS["production"], True, 3)
+    order = plan.dkv_order
+    assert order[:15].tolist() == [[35, c] for c in range(11)] + [[36, c] for c in range(4)]
+    assert len(order) == 36 * 11 + 4
