@@ -75,16 +75,19 @@ counted from 0, and their sum), its largest error against the plain version,
 the kernel's, the plain version's and the library call's milliseconds at the
 main-path shape, and the bound: the larger of bytes moved over 3.35 TB/s and
 the operations over the card's dense rates (989 TFLOP/s bf16 and 1,979 TOP/s
-int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  K1's
-and K2's entries add their rate (`tflops`) and `share_of_bound` (the bound
-over the kernel's time); the four sliding-tile entries (K7, K8) add the
+int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  K1's,
+K2's and K3's entries add their rate (`tflops`) and `share_of_bound` (the
+bound over the kernel's time), K3's also its numbers at the 14B's 40 heads
+(`at_14b`, k and v as chunk views of one projection, as the DiT passes
+them), the time of two SDPA calls and an add (information only) and its
+registers and spill bytes; the four sliding-tile entries (K7, K8) add the
 same and the registers and spill bytes of their kernels from the build log
 (the log gives the time of their first, mma.sync design beside the new one,
 and K8 dk/dv's time with its CTAs launched in block order beside the
-heaviest-first order it runs).  The build fails the
-run on a spill in a kernel built from csrc/flash_bodies.cuh (K1, K2, K5, K7,
-K8) or on any ptxas C7515 / C7512 note (serialised wgmmas).  The last line
-is {"ok": true, "device": ...}.
+heaviest-first order it runs).  The build fails the run on a spill in a
+kernel built from csrc/flash_bodies.cuh (K1, K2, K3, K5, K7, K8) or on any
+ptxas C7515 / C7512 note (serialised wgmmas).  The last line is
+{"ok": true, "device": ...}.
 """
 
 import json
@@ -336,28 +339,21 @@ def phase_kernels():
     # dual cross-attention: 48,832 q rows x (512 text, 257 CLIP) keys
     k1, v1, k2, v2 = rnd(2, 512, 12, 128), rnd(2, 512, 12, 128), rnd(2, 257, 12, 128), \
         rnd(2, 257, 12, 128)
-    o = A.dual_cross_attention_fused(q, k1, v1, k2, v2)
-    torch.cuda.synchronize()
-    err = 0.0
-    for sl in rows:
-        po = A.dual_cross_attention_plain(q[:, sl].float(), *f32(k1, v1, k2, v2))
-        err = max(err, compare(f"dual_cross (2,{S},12,128)x(512,257) rows "
-                               f"[{sl.start},{sl.stop}) out", o[:, sl], po,
-                               key="dual_cross_attention"))
+    results["dual_cross_attention"] = _dual_cross_main(q, k1, v1, k2, v2, rows, "1.3B")
     qs, k1s, v1s, k2s, v2s = rnd(2, 200, 2, 128), rnd(2, 37, 2, 128), rnd(2, 37, 2, 128), \
         rnd(2, 21, 2, 128), rnd(2, 21, 2, 128)
     compare("dual_cross small (2,200,2,128)x(37,21) out",
             A.dual_cross_attention_fused(qs, k1s, v1s, k2s, v2s),
             A.dual_cross_attention_plain(*f32(qs, k1s, v1s, k2s, v2s)))
-    ms = timed_ms(lambda: A.dual_cross_attention_fused(q, k1, v1, k2, v2))
-    plain_ms = timed_ms(lambda: A.dual_cross_attention_plain(q, k1, v1, k2, v2), iters=1)
-    b_ms, b_by = bound(4 * 24 * S * (512 + 257) * 128, nbytes(q, o, k1, v1, k2, v2))
-    log(f"dual_cross main shape: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound "
-        f"{b_ms:.3f} ms ({b_by}); no single library call sums two softmaxes")
-    # library_ms None: no one PyTorch call computes the sum of two attentions
-    results["dual_cross_attention"] = dict(max_abs_err=err, ms=ms, plain_ms=plain_ms,
-                                           bound_ms=b_ms, bound_by=b_by, library_ms=None)
-    del q, k, v, o, k1, v1, k2, v2
+    del q, k, v, o, lse, k1, v1, k2, v2
+    torch.cuda.empty_cache()
+    # the 14B's 40 heads, k and v as the DiT hands them over: chunk views of
+    # one (b, s, 2 x hidden) projection per stream
+    q = rnd(2, S, 40, 128)
+    k1, v1 = rnd(2, 512, 2 * 40 * 128).unflatten(-1, (80, 128)).chunk(2, dim=2)
+    k2, v2 = rnd(2, 257, 2 * 40 * 128).unflatten(-1, (80, 128)).chunk(2, dim=2)
+    results["dual_cross_attention"]["at_14b"] = _dual_cross_main(q, k1, v1, k2, v2, rows, "14B")
+    del q, k1, v1, k2, v2
     torch.cuda.empty_cache()
     results.update(_backward_kernels(gen, rnd, f32))
     sta = _sta_kernels(gen, rnd, f32)
@@ -369,6 +365,49 @@ def phase_kernels():
     results["flash_attention_int8"] = _int8_kernel(gen, rnd)
     results.update(_norm_kernels(gen, rnd))
     return results
+
+
+def _dual_cross_main(q, k1, v1, k2, v2, rows, label):
+    """K3 at a main-path shape: the sampled q rows against the plain version,
+    then times of kernel and plain version beside the bound; two SDPA calls
+    and an add on the same inputs are logged for information only (no single
+    library call sums two softmaxes)."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.ops import attention as A
+
+    b, S, n, _ = q.shape
+    o = A.dual_cross_attention_fused(q, k1, v1, k2, v2)
+    torch.cuda.synchronize()
+    err = 0.0
+    for sl in rows:
+        po = A.dual_cross_attention_plain(q[:, sl].float(), *(t.float() for t in (k1, v1, k2, v2)))
+        err = max(err, compare(f"dual_cross ({b},{S},{n},128)x({k1.shape[1]},{k2.shape[1]}) rows "
+                               f"[{sl.start},{sl.stop}) out", o[:, sl], po,
+                               key="dual_cross_attention"))
+    again = A.dual_cross_attention_fused(q, k1, v1, k2, v2)
+    if not torch.equal(o, again):
+        fail(f"dual_cross {label}: two calls on the same inputs differ")
+    del again
+    ms = timed_ms(lambda: A.dual_cross_attention_fused(q, k1, v1, k2, v2), iters=20)
+    plain_ms = timed_ms(lambda: A.dual_cross_attention_plain(q, k1, v1, k2, v2), iters=1)
+    qt = q.transpose(1, 2)
+    sdpa2_ms = timed_ms(lambda: F.scaled_dot_product_attention(
+        qt, k1.transpose(1, 2), v1.transpose(1, 2)) + F.scaled_dot_product_attention(
+        qt, k2.transpose(1, 2), v2.transpose(1, 2)), iters=20)
+    flops = 4 * b * n * S * (k1.shape[1] + k2.shape[1]) * 128
+    b_ms, b_by = bound(flops, nbytes(q, o, k1, v1, k2, v2))
+    usage = kernel_usage("dual_cross_kernel")
+    log(f"dual_cross {label} main shape ({b},{S},{n},128)x({k1.shape[1]},{k2.shape[1]}): kernel "
+        f"{ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of bound; mma.sync "
+        f"design {PARENT_MS['dual_cross_attention'][label]} ms), plain {plain_ms:.3f} ms, bound "
+        f"{b_ms:.3f} ms ({b_by}); two SDPA calls and an add {sdpa2_ms:.3f} ms (information "
+        f"only: no single library call sums two softmaxes); ptxas {usage}")
+    # library_ms None: no one PyTorch call computes the sum of two attentions
+    return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
+                library_ms=None, tflops=flops / ms / 1e9, share_of_bound=b_ms / ms,
+                two_sdpa_and_add_ms=sdpa2_ms, ptxas=usage)
 
 
 # K9 at the main-path shapes, CFG batch 2: (name, rows per batch element, d):
@@ -529,12 +568,15 @@ PARENT_MS = {"w8a16_matmul": {"qkv": 74.48, "mlp_in": 67.35, "mlp_out": 65.88,
                               "attn_out": 22.74, "cross_kv": 0.554},
              "flash_attention_int8": 656.48,
              "flash_attention_rope": 175.73, "flash_attention": 7.522,
+             # K3's mma.sync design at the 1.3B and the 14B main-path shapes
+             "dual_cross_attention": {"1.3B": 3.505, "14B": 11.551},
              # the first, mma.sync design of K7 / K8, one layer's two calls
              "sta_attention_fwd": 47.92, "sta_attention_fwd_lse": 24.79,
              "sta_attention_bwd_dq": 33.79, "sta_attention_bwd_dkv": 44.34}
-# the kernels built from csrc/flash_bodies.cuh (K1, K2, K5, K7, K8): no spills
+# the kernels built from csrc/flash_bodies.cuh (K1, K2, K3, K5, K7, K8): no spills
 FLASH_BODY_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
-                      "sta_fwd_kernel", "sta_bwd_dq_kernel", "sta_bwd_dkv_kernel")
+                      "sta_fwd_kernel", "sta_bwd_dq_kernel", "sta_bwd_dkv_kernel",
+                      "dual_cross_kernel")
 # the kernels of each sliding-tile entry in the build log
 STA_KERNELS = {"sta_attention_fwd": "sta_fwd_kernel", "sta_attention_fwd_lse": "sta_fwd_kernel",
                "sta_attention_bwd_dq": "sta_bwd_dq_kernel",

@@ -18,8 +18,11 @@
 //     64-row chunks of each q tile an STA inverse-table row lists.  Rows
 //     past a run's end get lse2 = +inf when staged, so p = exp2(min(s -
 //     lse2, 0)) = 0 for them and the products need no mask.
-// The rest of each design (ring depths, register budgets, the first kv
-// tile peeled off the forward loop) is described at the kernels.
+// The forward's pieces (k1::prepare_q, the QK^T and P V issues, the tile
+// softmax and the P packing) are functions of their own, so that the dual
+// cross-attention (dual_cross_attention.cu: K3) runs them on its two-stream
+// walk.  The rest of each design (ring depths, register budgets, the first
+// kv tile peeled off the forward loop) is described at the kernels.
 
 #pragma once
 
@@ -189,6 +192,83 @@ __device__ __forceinline__ void prepare_q(unsigned char* sq, int c, int tid, int
   }
 }
 
+// S = q K^T of one 64-row kv tile, one commit group: q is the CTA's 128-row
+// tile (a consumer's rows at descriptor qa), K the stage at descriptor kb.
+__device__ __forceinline__ void issue_scores(float (&sc)[32], uint32_t qa, uint32_t kb) {
+  wgmma_fence();
+  static_for<8>([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    wgmma_m64n64k16_ss_c<kmajor_off(K, kQHalf), kmajor_off(K, kHalf), (K > 0)>(sc, qa, kb);
+  });
+  wgmma_commit();
+}
+
+// O += P V of one tile, V read through the transposed descriptor vt (LBO =
+// the halves' distance), one commit group.
+__device__ __forceinline__ void issue_pv(float (&acc)[64], const uint32_t (&pa)[4][4],
+                                         uint32_t vt) {
+  wgmma_fence();
+  static_for<4>([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    wgmma_m64n128k16_rs_tb<2048 * K>(acc, pa[K], vt, 1);
+  });
+  wgmma_commit();
+}
+
+// The online softmax of a tile in place on its scores (rows g, elements
+// e < 2, and g + 8), columns at or past `lim` masked: P unnormalised, m and
+// l updated, alpha the factor of the old O; t = lane % 4.  Each column 8j +
+// 2t + (e & 1) is held against one threshold, lim - 2t, so the unrolled
+// comparisons take constants (a form comparing the column itself cost
+// ptxas 14 more registers).
+__device__ __forceinline__ void softmax_tile(float (&sc)[32], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int lim, int t) {
+  if (lim < kRows) {  // the tile runs past its block or the sequence
+    const int left = lim - 2 * t;
+#pragma unroll
+    for (int j = 0; j < 8; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + (e & 1) >= left) sc[4 * j + e] = kNegInf;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_next = fmaxf(m[r], mx);
+    alpha[r] = exp2_ftz(m[r] - m_next);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 8; ++j) {
+      sc[4 * j + 2 * r] = exp2_ftz(sc[4 * j + 2 * r] - m_next);
+      sc[4 * j + 2 * r + 1] = exp2_ftz(sc[4 * j + 2 * r + 1] - m_next);
+      sum += sc[4 * j + 2 * r] + sc[4 * j + 2 * r + 1];
+    }
+    l[r] = alpha[r] * l[r] + sum;
+    m[r] = m_next;
+  }
+}
+
+// P to bf16, columns [16 kk, 16 kk + 16) as the A fragment of k-step kk.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[4][4], const float (&sc)[32]) {
+#pragma unroll
+  for (int kk = 0; kk < 4; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+// The quad's row sums of l (each thread held a partial sum of its columns).
+__device__ __forceinline__ void reduce_rowsums(float (&l)[2]) {
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
+    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
+  }
+}
+
 }  // namespace k1
 
 // The forward of one CTA: q rows [q0, q0 + 128) of (b, h) against the kv
@@ -261,109 +341,47 @@ __device__ __forceinline__ void flash_fwd_body(
   float sc[32];
   uint32_t pa[4][4];
 
-  // S = q K^T of tile `it`, one commit group
+  // S = q K^T of tile `it`, once its stage has landed
   auto issue_scores = [&](int it) {
     const int s = it % S;
     mbar_wait(&full[s], (it / S) & 1);
-    const uint32_t kb = desc_lo(smem_u32(sm + k1::kK + s * k1::kTile), 0);
-    wgmma_fence();
-    static_for<8>([&](auto kk) {
-      constexpr int K = decltype(kk)::value;
-      wgmma_m64n64k16_ss_c<kmajor_off(K, k1::kQHalf), kmajor_off(K, k1::kHalf), (K > 0)>(
-          sc, qa, kb);
-    });
-    wgmma_commit();
+    k1::issue_scores(sc, qa, desc_lo(smem_u32(sm + k1::kK + s * k1::kTile), 0));
   };
-  // O += P V of tile `it`, V read through the transposed descriptor (LBO = the
-  // halves' distance), one commit group
   auto issue_pv = [&](int it) {
-    const uint32_t vt = desc_lo(smem_u32(sm + k1::kV + (it % S) * k1::kTile), k1::kHalf);
-    wgmma_fence();
-    static_for<4>([&](auto kk) {
-      constexpr int K = decltype(kk)::value;
-      wgmma_m64n128k16_rs_tb<2048 * K>(acc, pa[K], vt, 1);
-    });
-    wgmma_commit();
+    k1::issue_pv(acc, pa, desc_lo(smem_u32(sm + k1::kV + (it % S) * k1::kTile), k1::kHalf));
   };
   auto release = [&](int it) {
     __syncwarp();
     if (lane == 0) mbar_arrive(&empty[it % S]);
   };
-
-  // the online softmax of a tile in place on its scores (rows g, elements
-  // e < 2, and g + 8), columns at or past `lim` masked: P unnormalised, m
-  // and l updated, alpha the factor of the old O.  Each column 8j + 2t +
-  // (e & 1) is held against one threshold, lim - 2t, so the unrolled
-  // comparisons take constants (a form comparing the column itself cost
-  // ptxas 14 more registers).
   float alpha[2];
-  auto softmax = [&](int lim) {
-    if (lim < k1::kRows) {  // the tile runs past its block or the sequence
-      const int left = lim - 2 * t;
-#pragma unroll
-      for (int j = 0; j < 8; ++j)
-#pragma unroll
-        for (int e = 0; e < 4; ++e)
-          if (8 * j + (e & 1) >= left) sc[4 * j + e] = kNegInf;
-    }
-#pragma unroll
-    for (int r = 0; r < 2; ++r) {
-      float mx = kNegInf;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
-      mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
-      const float m_next = fmaxf(m[r], mx);
-      alpha[r] = k1::exp2_ftz(m[r] - m_next);
-      float sum = 0.f;
-#pragma unroll
-      for (int j = 0; j < 8; ++j) {
-        sc[4 * j + 2 * r] = k1::exp2_ftz(sc[4 * j + 2 * r] - m_next);
-        sc[4 * j + 2 * r + 1] = k1::exp2_ftz(sc[4 * j + 2 * r + 1] - m_next);
-        sum += sc[4 * j + 2 * r] + sc[4 * j + 2 * r + 1];
-      }
-      l[r] = alpha[r] * l[r] + sum;
-      m[r] = m_next;
-    }
-  };
-  // P to bf16, columns [16 kk, 16 kk + 16) as the A fragment of k-step kk
-  auto pack_p = [&] {
-#pragma unroll
-    for (int kk = 0; kk < 4; ++kk)
-#pragma unroll
-      for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
-  };
 
   KvWalk w = walk;
   issue_scores(0);
   wgmma_wait<0>();
   fence_regs(sc);
-  softmax(w.limit());  // O is still zero: no rescale
-  pack_p();
+  k1::softmax_tile(sc, m, l, alpha, w.limit(), t);  // O is still zero: no rescale
+  k1::pack_p(pa, sc);
   for (int it = 1; it < n_kv; ++it) {
     w.next();
     issue_scores(it);
     issue_pv(it - 1);
     wgmma_wait<1>();  // the scores of tile it; P V of tile it - 1 may still run
     fence_regs(sc);
-    softmax(w.limit());
+    k1::softmax_tile(sc, m, l, alpha, w.limit(), t);
     wgmma_wait<0>();  // P V of tile it - 1: its stage and the A registers are free
     fence_regs(acc);
     release(it - 1);
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
-    pack_p();
+    k1::pack_p(pa, sc);
   }
   issue_pv(n_kv - 1);
   wgmma_wait<0>();
   fence_regs(acc);
   release(n_kv - 1);
 
-#pragma unroll
-  for (int r = 0; r < 2; ++r) {
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 1);
-    l[r] += __shfl_xor_sync(0xffffffffu, l[r], 2);
-  }
+  k1::reduce_rowsums(l);
 #pragma unroll
   for (int r = 0; r < 2; ++r) {
     const int row = row0 + warp * 16 + lane / 4 + 8 * r;

@@ -1,9 +1,11 @@
 // Hopper building blocks of the wgmma kernels (flash_attention.cu,
-// flash_attention_bwd.cu, flash_attention_int8.cu, w8a16_matmul.cu): TMA tile
-// copies and bulk copies completed on mbarriers, cp.async copies for strides
-// TMA cannot take, named barriers and the async-proxy fence,
-// warpgroup matrix multiplies (wgmma, bf16 and s8) with operands described in
-// shared memory, and the host-side construction of the TMA tensor maps.
+// flash_attention_bwd.cu, sta_attention.cu and dual_cross_attention.cu through
+// flash_bodies.cuh, flash_attention_int8.cu, w8a16_matmul.cu): TMA tile
+// copies and bulk copies completed on mbarriers, TMA tile stores, cp.async
+// copies for strides TMA cannot take, named barriers and the async-proxy
+// fence, warpgroup matrix multiplies (wgmma, bf16 and s8) with operands
+// described in shared memory, and the host-side construction of the TMA
+// tensor maps.
 //
 // Shared-memory tile layout.  A (rows, 128) bf16 tile is kept as two column
 // halves, each (rows, 64) with 128-byte rows in the 128-byte swizzle that TMA
@@ -106,6 +108,30 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
       : "memory");
+}
+
+// Copy a box of shared memory (laid out as tma_load_4d writes it) to the
+// coordinates (c0, c1, c2, c3) of a 4-d tensor map; elements outside the
+// tensor are not written.  Completion is tracked by the issuing thread's
+// bulk groups (bulk_commit, bulk_wait_read).
+__device__ __forceinline__ void tma_store_4d(const CUtensorMap* map, const void* src, int c0,
+                                             int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.global.shared::cta.bulk_group [%0, {%2, %3, %4, %5}], [%1];\n"
+      ::"l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(src)), "r"(c0), "r"(c1), "r"(c2),
+      "r"(c3)
+      : "memory");
+}
+
+__device__ __forceinline__ void bulk_commit() {
+  asm volatile("cp.async.bulk.commit_group;\n" ::: "memory");
+}
+
+// Wait until all but the newest N bulk groups of this thread have read their
+// shared-memory sources (the sources may then be overwritten).
+template <int N>
+__device__ __forceinline__ void bulk_wait_read() {
+  asm volatile("cp.async.bulk.wait_group.read %0;\n" ::"n"(N) : "memory");
 }
 
 // Copy the box at coordinates (c0, c1) of a 2-d tensor map into shared memory.

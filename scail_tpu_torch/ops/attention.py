@@ -344,7 +344,7 @@ def dual_cross_attention_fused(q, k1, v1, k2, v2, *, scale=None):
     b, sq, n, d = q.shape
     s1, s2 = k1.shape[1], k2.shape[1]
     if (k1.shape != (b, s1, n, d) or v1.shape != k1.shape or k2.shape != (b, s2, n, d)
-            or v2.shape != k2.shape or s1 == 0 or s2 == 0 or b * n > 65535):
+            or v2.shape != k2.shape or sq == 0 or s1 == 0 or s2 == 0):
         raise ValueError("dual_cross_attention: unsupported shapes "
                          f"{[tuple(t.shape) for t in (q, k1, v1, k2, v2)]}")
     out = torch.empty((b, sq, n, d), dtype=q.dtype, device=q.device)

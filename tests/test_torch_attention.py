@@ -112,15 +112,37 @@ def test_flash_rounding_points_match_jax_in_bf16(rng, rope):
     assert (got.float() == want).float().mean().item() >= 0.8
 
 
-def test_dual_cross_attention_matches_jax_pallas(rng):
-    b, s, n, d = 1, 200, 2, 128
-    q = _rand(rng, b, s, n, d)
-    k1, v1 = _rand(rng, b, 37, n, d), _rand(rng, b, 37, n, d)
-    k2, v2 = _rand(rng, b, 21, n, d), _rand(rng, b, 21, n, d)
+def _chunk_views(proj, n):
+    """k, v as the DiT hands them over: the two halves of one (b, s, 2 n 128)
+    projection, split with chunk into (b, s, n, 128) views of row stride
+    2 n 128."""
+    return torch.from_numpy(proj).unflatten(-1, (2 * n, 128)).chunk(2, dim=2)
+
+
+@pytest.mark.parametrize("b, sq, n, s1, s2, chunked", [
+    (1, 200, 2, 37, 21, False),
+    (2, 130, 2, 512, 257, False),   # the DiT's text and CLIP lengths, a ragged q tail
+    (2, 130, 2, 512, 257, True),
+], ids=["ragged", "dit_lengths", "dit_chunk_views"])
+def test_dual_cross_attention_matches_jax_pallas(rng, b, sq, n, s1, s2, chunked):
+    """The port's dual cross-attention against JAX's Pallas K3 (interpret
+    mode) on the same inputs; `chunked` passes k/v to the port as chunk views
+    of one projection per stream, as dit.py does, and JAX their copies."""
+    d = 128
+    q = _rand(rng, b, sq, n, d)
+    kv1, kv2 = _rand(rng, b, s1, 2 * n * d), _rand(rng, b, s2, 2 * n * d)
+    k1, v1 = (a.reshape(b, s1, n, d) for a in np.split(kv1, 2, axis=-1))
+    k2, v2 = (a.reshape(b, s2, n, d) for a in np.split(kv2, 2, axis=-1))
     with pltpu.force_tpu_interpret_mode():
         want = np.asarray(jattn.dual_cross_attention(
             *(jnp.asarray(a) for a in (q, k1, v1, k2, v2)), impl="pallas"))
-    got = tattn.dual_cross_attention(*_t(q, k1, v1, k2, v2)).numpy()
+    if chunked:
+        tk1, tv1 = _chunk_views(kv1, n)
+        tk2, tv2 = _chunk_views(kv2, n)
+        assert tk1.stride(1) == 2 * n * d and not tk1.is_contiguous()
+        got = tattn.dual_cross_attention(torch.from_numpy(q), tk1, tv1, tk2, tv2).numpy()
+    else:
+        got = tattn.dual_cross_attention(*_t(q, k1, v1, k2, v2)).numpy()
     np.testing.assert_allclose(got, want, **TOL)
 
 

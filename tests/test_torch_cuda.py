@@ -152,6 +152,60 @@ def test_dual_cross_attention_kernel_matches_plain(cuda):
     _assert_close(out, want)
 
 
+def _check_dual(q, k1, v1, k2, v2, rows=None):
+    """K3 against its plain version on the same bf16 inputs (on the q rows of
+    each slice in `rows`, else on all), its launch counted once; then a
+    second call for the same bits."""
+    before = dict(A.LAUNCHES)
+    out = A.dual_cross_attention_fused(q, k1, v1, k2, v2)
+    torch.cuda.synchronize()
+    assert ({n: c - before[n] for n, c in A.LAUNCHES.items() if c != before[n]}
+            == {"dual_cross_attention": 1})
+    for sl in rows or (slice(None),):
+        _assert_close(out[:, sl], A.dual_cross_attention_plain(q[:, sl], k1, v1, k2, v2))
+    assert torch.equal(out, A.dual_cross_attention_fused(q, k1, v1, k2, v2))
+
+
+def _dual_kv(gen, b, s, n, chunked):
+    """k, v of one stream: contiguous, or chunk views of one (b, s, 2 n 128)
+    projection (row stride 2 x hidden), as the DiT passes them."""
+    if chunked:
+        return _rnd(gen, b, s, 2 * n * 128).unflatten(-1, (2 * n, 128)).chunk(2, dim=2)
+    return _rnd(gen, b, s, n, 128), _rnd(gen, b, s, n, 128)
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("s1", [1, 64, 65, 512])
+@pytest.mark.parametrize("s2", [1, 257])
+def test_dual_cross_attention_ragged_streams(cuda, s1, s2):
+    """Every kv tail of either stream (a tile of 1 live row, a whole tile, one
+    row past it, the DiT's 512 and 257) at 130 q rows: a q tile whose second
+    warpgroup holds 2 live rows."""
+    q = _rnd(cuda, 2, 130, 2, 128)
+    _check_dual(q, *_dual_kv(cuda, 2, s1, 2, False), *_dual_kv(cuda, 2, s2, 2, False))
+
+
+@pytest.mark.cuda
+def test_dual_cross_attention_loops_items_with_ragged_q_tiles(cuda):
+    """More (head, q tile) items than SMs, so each persistent CTA walks
+    several, every ninth with 76 live rows (1,100 = 8 x 128 + 76), k/v as
+    chunk views."""
+    q = _rnd(cuda, 1, 1100, 64, 128)
+    _check_dual(q, *_dual_kv(cuda, 1, 512, 64, True), *_dual_kv(cuda, 1, 257, 64, True))
+
+
+@pytest.mark.cuda
+@pytest.mark.parametrize("heads", [12, 40])
+def test_dual_cross_attention_at_the_main_shapes(cuda, heads):
+    """The 1.3B's 12 and the 14B's 40 heads at CFG batch 2 and 48,832 q rows
+    against (512, 257) keys given as the DiT's chunk views, checked on the
+    first and the last 1,024 rows."""
+    s = 48832
+    q = _rnd(cuda, 2, s, heads, 128)
+    _check_dual(q, *_dual_kv(cuda, 2, 512, heads, True), *_dual_kv(cuda, 2, 257, heads, True),
+                rows=(slice(0, 1024), slice(s - 1024, s)))
+
+
 def _bwd_case(gen, strided_v=False):
     """Ragged K5 inputs: q/dO (1, 150, 2, 128), k/v (1, 176, 2, 128), bf16, with
     the forward's output and LSE from the kernel."""
