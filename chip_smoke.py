@@ -61,6 +61,20 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  tokens, exactly 240 K1 + 240 K3 + 488 K9 + 240 K10; an .mp4 of
                  161 x 512 x 896 frames, per-phase seconds and peak GB.  Runs
                  after phase 5b.
+  9. load     -- the released files' layouts at full width, written from an
+                 engine made from seeds on the card: the 1.3B DiT in bf16
+                 under SAT names with `latest`, the Wan VAE in f32, CLIP
+                 ViT-H under visual.*, umt5-xxl with all 24 layers in bf16
+                 (16.3 GB, each file fsynced and dropped from the page
+                 cache), and a copy of the 1.3B YAML pointing at them.  The
+                 sampling CLI with --load answers the 81-frame request in 2
+                 steps: exactly 60 K1 + 60 K3 + 122 K9 + 60 K10, a finite,
+                 non-constant clip; every loaded tensor is on the card and
+                 bit-equal to its source; load_checkpoint's device peak stays
+                 within 1 GB of the DiT's parameters; each file's seconds and
+                 GB/s.  Then the train CLI with --load takes one full-depth
+                 step from the file's weights in f32 (exact launches, a
+                 finite loss).  The files are deleted at the end.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -70,10 +84,11 @@ holds both against their plain versions at the main-path shapes).
 
 The line before the last is {"kernels": [...]}: per kernel its launches on the
 main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
-train CLI of phases 6 and 6b and the 14B paths of phases 7, 7b and 8, each
-counted from 0, and their sum), its largest error against the plain version,
-the kernel's, the plain version's and the library call's milliseconds at the
-main-path shape, and the bound: the larger of bytes moved over 3.35 TB/s and
+train CLI of phases 6 and 6b, the 14B paths of phases 7, 7b and 8 and the
+--load request of phase 9, each counted from 0, and their sum), its largest
+error against the plain version, the kernel's, the plain version's and the
+library call's milliseconds at the main-path shape, and the bound: the
+larger of bytes moved over 3.35 TB/s and
 the operations over the card's dense rates (989 TFLOP/s bf16 and 1,979 TOP/s
 int8 on the tensor cores, 67 TFLOP/s f32 outside them; H100 SXM).  K1's,
 K2's and K3's entries add their rate (`tflops`) and `share_of_bound` (the
@@ -1831,6 +1846,318 @@ def phase_cli_long():
     return counts, dict(rec, total_s=total, peak_gb=peak_gb)
 
 
+# the released files' names, written from the port's modules: the reverse of
+# scail_tpu_torch/convert/torch_ckpt.py, wan_vae_ckpt.py and the umt5 / CLIP
+# loaders, kept here so the files do not come from the code that reads them
+SAT = "model.diffusion_model."
+SAT_GLOBAL = {"patch_embed.proj": "mixins.patch_embed.proj",
+              "patch_embed.proj_pose": "mixins.patch_embed.proj_pose",
+              "time_embed.fc1": "time_embed.0", "time_embed.fc2": "time_embed.2",
+              "text_embedding.fc1": "text_embedding.0", "text_embedding.fc2": "text_embedding.2",
+              "final_layer.linear": "mixins.final_layer.linear",
+              "adaln_projection.fc": "adaln_projection.1",
+              "clip_proj.ln_in": "clip_proj.proj.0", "clip_proj.fc1": "clip_proj.proj.1",
+              "clip_proj.fc2": "clip_proj.proj.3", "clip_proj.ln_out": "clip_proj.proj.4"}
+SAT_LAYER = {"qkv": "transformer.layers.{}.attention.query_key_value",
+             "attn_out": "transformer.layers.{}.attention.dense",
+             "cross_q": "transformer.layers.{}.cross_attention.query",
+             "cross_kv": "transformer.layers.{}.cross_attention.key_value",
+             "cross_out": "transformer.layers.{}.cross_attention.dense",
+             "mlp_in": "transformer.layers.{}.mlp.dense_h_to_4h",
+             "mlp_out": "transformer.layers.{}.mlp.dense_4h_to_h",
+             "adaln": "mixins.adaln_layer.adaLN_modulations.{}",
+             "q_norm": "mixins.adaln_layer.query_layernorm_list.{}",
+             "k_norm": "mixins.adaln_layer.key_layernorm_list.{}",
+             "cross_q_norm": "mixins.adaln_layer.cross_query_layernorm_list.{}",
+             "cross_k_norm": "mixins.adaln_layer.cross_key_layernorm_list.{}",
+             "clip_k_norm": "mixins.adaln_layer.clip_feature_key_layernorm_list.{}",
+             "clip_kv": "mixins.adaln_layer.clip_feature_key_value_list.{}"}
+T5_BLOCK = {"norm1.scale": "norm1.weight", "q.weight": "attn.q.weight",
+            "k.weight": "attn.k.weight", "v.weight": "attn.v.weight", "o.weight": "attn.o.weight",
+            "pos_emb": "pos_embedding.embedding.weight", "norm2.scale": "norm2.weight",
+            "gate.weight": "ffn.gate.0.weight", "fc1.weight": "ffn.fc1.weight",
+            "fc2.weight": "ffn.fc2.weight"}
+CLIP_BLOCK = {"norm1": "norm1", "to_qkv": "attn.to_qkv", "proj": "attn.proj", "norm2": "norm2",
+              "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
+
+
+def _leaf(leaf):
+    return "weight" if leaf == "scale" else leaf
+
+
+def sat_dit_file(sd):
+    """A DiT state dict -> the SAT checkpoint's 'module': SAT names, the patch
+    convs (h, in, 1, 2, 2), the AdaLN tables with their leading 1."""
+    out = {}
+    for k, v in sd.items():
+        parts = k.split(".")
+        if k == "final_layer.adaln":
+            out[SAT + "mixins.final_layer.adaLN_modulation"] = v[None]
+        elif parts[0] == "layers":
+            name = SAT_LAYER[parts[2]].format(parts[1])
+            out[SAT + name + ("." + _leaf(parts[3]) if len(parts) > 3 else "")] = \
+                v[None] if parts[2] == "adaln" else v
+        else:
+            if parts[0] == "patch_embed" and parts[2] == "weight":
+                v = v.reshape(v.shape[0], -1, 1, 2, 2)
+            out[SAT + SAT_GLOBAL[".".join(parts[:2])] + "." + _leaf(parts[2])] = v
+    return out
+
+
+def wan_vae_file(sd):
+    """A WanVAEModel state dict -> Wan2.1_VAE.pth's tensors, in f32 as the
+    released file: RMS gammas (c, 1, 1) in the attention blocks, (c, 1, 1, 1)
+    elsewhere."""
+    def gamma(k, v):
+        return v.reshape(-1, 1, 1) if k.endswith(".norm.gamma") else v.reshape(-1, 1, 1, 1)
+
+    return {k: (gamma(k, v) if k.endswith(".gamma") else v).float() for k, v in sd.items()}
+
+
+def clip_file(sd):
+    """A ClipVisionTower state dict -> the reference's visual.* names."""
+    out = {}
+    for k, v in sd.items():
+        k = k.replace(".scale", ".weight")
+        if k.startswith("layers."):
+            _, i, mod, leaf = k.split(".")
+            k = f"transformer.{i}.{CLIP_BLOCK[mod]}.{leaf}"
+        out["visual." + k] = v
+    return out
+
+
+def umt5_file(sd):
+    """A UMT5Encoder state dict -> models_t5_umt5-xxl-enc-bf16.pth's names."""
+    out = {}
+    for k, v in sd.items():
+        if k in ("token_embedding", "norm.scale"):
+            out[{"token_embedding": "token_embedding.weight", "norm.scale": "norm.weight"}[k]] = v
+        else:
+            _, i, rest = k.split(".", 2)
+            out[f"blocks.{i}.{T5_BLOCK[rest]}"] = v
+    return out
+
+
+def _save_cold(obj, path):
+    """torch.save, then flush the file and drop it from the page cache, so a
+    load reads the disk as a fresh machine's would.  Returns the file's bytes."""
+    import torch
+
+    os.makedirs(os.path.dirname(path), exist_ok=True)
+    torch.save(obj, path)
+    fd = os.open(path, os.O_RDONLY)
+    try:
+        os.fsync(fd)
+        os.posix_fadvise(fd, 0, 0, os.POSIX_FADV_DONTNEED)
+    finally:
+        os.close(fd)
+    return os.path.getsize(path)
+
+
+def _cpu_state(module):
+    return {k: v.detach().cpu() for k, v in module.state_dict().items()}
+
+
+def _held(name, module, source, dtype):
+    """Fail unless every tensor of `module` is on the card and bit-equal to
+    `source` (the state it was written from) cast to `dtype`."""
+    import torch
+
+    got = module.state_dict()
+    if set(got) != set(source):
+        fail(f"load: {name} has parameters {sorted(set(got) ^ set(source))[:4]} that its "
+             "source has not, or the other way")
+    off = [k for k, v in got.items() if v.device.type != "cuda"]
+    bad = [k for k, v in got.items()
+           if v.dtype != dtype or not torch.equal(v, source[k].to("cuda", dtype))]
+    if off or bad:
+        fail(f"load: {name} is not its source on the card: off the card {off[:4]}, "
+             f"not bit-equal {bad[:4]}")
+    return len(got)
+
+
+# the --load request: 2 steps, one DiT forward at CFG batch 2 each
+LOAD_LAUNCHES = {k: 2 * v for k, v in DIT_LAUNCHES.items()}
+
+
+def phase_load(ex81):
+    """Load the released files' layouts: an engine made from seeds on the card
+    is written in the reference's layouts at full width (the 1.3B DiT in bf16
+    under SAT names with `latest`, the Wan VAE in f32, CLIP ViT-H under
+    visual.*, umt5-xxl with all 24 layers in bf16), each file flushed and
+    dropped from the page cache; a copy of the 1.3B YAML points at them.
+    The sampling CLI with --load answers the 81-frame request in 2 steps
+    (exact launches, a finite, non-constant clip); every loaded module is
+    bit-equal on the card to its source; the device peak of load_checkpoint
+    stays within 1 GB of the DiT's parameters.  Then the train CLI with
+    --load takes one full-depth step from the file's weights in f32."""
+    import gc
+    import math
+    import shutil
+
+    import numpy as np
+    import torch
+    import yaml
+
+    from scail_tpu_torch.cli import sample_video, train
+    from scail_tpu_torch.data.video import load_video_frames
+    from scail_tpu_torch.engine import VideoDiffusionEngine
+    from scail_tpu_torch.models.umt5 import UMT5Config
+    from scail_tpu_torch.training.engine import Trainer
+    from scail_tpu_torch.utils.config import load_configs, split_reference_config
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "load")
+    shutil.rmtree(work, ignore_errors=True)
+    base = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
+
+    # the source engine, from seeds on the card; umt5 at full depth
+    src = VideoDiffusionEngine(dict(split_reference_config(load_configs([base]))[1]),
+                               device="cuda")
+    src.conditioner.embedders[0].init(torch.Generator(device="cuda").manual_seed(12),
+                                      UMT5Config(), device=torch.device("cuda"))
+    src.init_params(torch.Generator(device="cuda").manual_seed(11))
+    sources = {"dit": _cpu_state(src.dit), "vae": _cpu_state(src.first_stage_model.model),
+               "clip": _cpu_state(src.i2v_clip.model),
+               "umt5": _cpu_state(src.conditioner.embedders[0].model)}
+    del src
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    ckpt = os.path.join(work, "ckpt")
+    paths = {"dit": os.path.join(ckpt, "1", "mp_rank_00_model_states.pt"),
+             "vae": os.path.join(work, "Wan2.1_VAE.pth"),
+             "clip": os.path.join(work, "models_clip_open-clip-xlm-roberta-large-vit-huge-14-"
+                                        "onlyvisual.pth"),
+             "umt5": os.path.join(work, "umt5-xxl", "models_t5_umt5-xxl-enc-bf16.pth")}
+    t0 = time.perf_counter()
+    written = {"dit": _save_cold({"module": sat_dit_file(sources["dit"]), "iteration": 1},
+                                 paths["dit"]),
+               "vae": _save_cold(wan_vae_file(sources["vae"]), paths["vae"]),
+               "clip": _save_cold(clip_file(sources["clip"]), paths["clip"]),
+               "umt5": _save_cold(umt5_file(sources["umt5"]), paths["umt5"])}
+    with open(os.path.join(ckpt, "latest"), "w") as f:
+        f.write("1")
+    write_s = time.perf_counter() - t0
+    with open(base) as f:
+        cfg = yaml.safe_load(f)
+    m = cfg["model"]
+    m["first_stage_config"]["params"]["vae_pth"] = paths["vae"]
+    m["i2v_clip_config"]["params"]["checkpoint_path"] = paths["clip"]
+    m["conditioner_config"]["params"]["emb_models"][0]["params"]["checkpoint_path"] = paths["umt5"]
+    load_yaml = os.path.join(work, "scail_1p3b_load.yaml")
+    with open(load_yaml, "w") as f:
+        yaml.safe_dump(cfg, f)
+    log("load: wrote " + ", ".join(f"{k} {v / 1e9:.3f} GB" for k, v in written.items())
+        + f" ({sum(written.values()) / 1e9:.2f} GB, flushed and dropped from the page cache) in "
+        f"{write_s:.1f} s; the YAML's vae_pth and checkpoint_paths point at them ({load_yaml})")
+
+    # the request through the CLI with --load
+    prompts = os.path.join(work, "prompts.txt")
+    with open(prompts, "w") as f:
+        f.write(f"a character dancing@@{ex81}\n")
+    argv = ["--base", load_yaml, os.path.join(ROOT, "configs", "sampling", "pose_cli.yaml"),
+            "--input-type", "txt", "--input-file", prompts, "--sampling-steps", "2",
+            "--device", "cuda", "--output-dir", os.path.join(work, "samples"), "--load", ckpt]
+    log("load: python -m scail_tpu_torch.cli.sample_video " + " ".join(argv))
+    seen = {}
+    real_load = VideoDiffusionEngine.load_checkpoint
+
+    def load_checkpoint(self, load_dir, **kw):  # the engine and its load's device peak
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        before = torch.cuda.memory_allocated()
+        out = real_load(self, load_dir, **kw)
+        torch.cuda.synchronize()
+        seen.update(engine=self, peak=torch.cuda.max_memory_allocated() - before)
+        return out
+
+    VideoDiffusionEngine.load_checkpoint = load_checkpoint
+    try:
+        reset_counts()
+        t0 = time.perf_counter()
+        records = sample_video.main(argv)
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        VideoDiffusionEngine.load_checkpoint = real_load
+    eng = seen["engine"]
+    for r in eng.weight_loads:
+        log(f"load: {r['what']} from {os.path.relpath(r['path'], ROOT)}: {r['bytes'] / 1e9:.3f} GB "
+            f"onto the card in {r['seconds']:.2f} s ({r['bytes'] / 1e9 / r['seconds']:.2f} GB/s)")
+    dit_gb = sum(p.numel() * p.element_size() for p in eng.dit.parameters()) / 1e9
+    peak_gb = seen["peak"] / 1e9
+    log(f"load: load_checkpoint's device peak {peak_gb:.3f} GB above what was allocated before, "
+        f"for {dit_gb:.3f} GB of DiT parameters (limit: parameters + 1 GB)")
+    if not peak_gb <= dit_gb + 1.0:
+        fail("load: load_checkpoint held more than the DiT's parameters and 1 GB on the card")
+    dtype = torch.bfloat16
+    held = {"DiT": _held("DiT", eng.dit, sources["dit"], dtype),
+            "Wan VAE": _held("Wan VAE", eng.first_stage_model.model, sources["vae"], dtype),
+            "CLIP": _held("CLIP", eng.i2v_clip.model, sources["clip"], dtype),
+            "umt5": _held("umt5", eng.conditioner.embedders[0].model, sources["umt5"], dtype)}
+    log(f"load: every loaded tensor is on the card and bit-equal to its source in bf16: {held}")
+    rec = records[0]
+    out = rec["outputs"][0]
+    decoded = load_video_frames(out)[0]
+    log(f"load: the --load request answered in {rec['seconds']:.2f} s ("
+        + ", ".join(f"{k} {v:.2f} s" for k, v in rec["phases"].items())
+        + f"; {total:.1f} s with the engine build and the loads); {os.path.relpath(out, ROOT)} "
+        f"decodes to {decoded.shape} (mean {decoded.mean():.1f}), samples finite "
+        f"{rec['finite']}; launches { {k: v for k, v in counts.items() if v} }")
+    _exact(counts, LOAD_LAUNCHES, "the --load request, 2 steps")
+    if len(records) != 1 or not (rec["finite"] and out.endswith(".mp4")
+                                 and decoded.shape == (81, 512, 896, 3) and np.ptp(decoded) > 0):
+        fail("load: expected one .mp4 of 81 finite, non-constant 512x896 frames")
+    loads = list(eng.weight_loads)
+    del eng, seen, records
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # one training step at full depth from the same DiT file
+    check = {}
+    real_fit = Trainer.fit
+
+    def fit(self, *a, **kw):  # the parameters the step starts from, against the file's
+        check["bad"] = [n for n, p in self.params.items()
+                        if p.dtype != torch.float32
+                        or not torch.equal(p, sources["dit"][n].to("cuda", torch.float32))]
+        check["n"] = len(self.params)
+        return real_fit(self, *a, **kw)
+
+    Trainer.fit = fit
+    try:
+        argv = _train_argv(load_yaml, _data_root(ex81)) + ["--load", ckpt, "--train-iters", "1"]
+        log("load: python -m scail_tpu_torch.cli.train " + " ".join(argv))
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        train_s = time.perf_counter() - t0
+        train_counts = launch_counts()
+    finally:
+        Trainer.fit = real_fit
+    loss = trainer.history[0]["loss"] if trainer.history else None
+    train_peak = torch.cuda.max_memory_allocated() / 1e9
+    log(f"load: train --load: {check.get('n')} parameters equal the file's in f32 before the "
+        f"step (mismatches {check.get('bad', ['not checked'])[:4]}); one step, loss {loss}, "
+        f"{train_s:.1f} s with the engine build and the loads, peak allocated {train_peak:.2f} "
+        f"GB; launches { {k: v for k, v in train_counts.items() if v} }")
+    if check.get("bad") != [] or trainer.step != 1 or loss is None or not math.isfinite(loss):
+        fail("load: train --load did not take one finite step from the file's weights")
+    _exact(train_counts, TRAIN_LAUNCHES_PER_STEP, "train --load, 1 step")
+    del trainer
+    gc.collect()
+    torch.cuda.empty_cache()
+    shutil.rmtree(work, ignore_errors=True)
+    phase_s = time.perf_counter() - t_phase
+    log(f"load: phase {phase_s:.1f} s; {sum(written.values()) / 1e9:.2f} GB written")
+    return counts, dict(rec, total_s=total, loads=loads, peak_gb=peak_gb, dit_gb=dit_gb,
+                        write_gb=sum(written.values()) / 1e9, write_s=write_s, loss=loss,
+                        train_s=train_s, phase_s=phase_s)
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -1851,6 +2178,7 @@ def main():
     w8_counts, w8 = phase_dit14b_w8()
     w4_counts, w4 = phase_e2e_14b_w4()
     int8_counts, int8 = phase_cli_14b_int8(ex81)
+    load_counts, load = phase_load(ex81)
 
     import torch
 
@@ -1866,13 +2194,16 @@ def main():
         f"GB); 14B int8 request {int8['seconds']:.2f} s, peak {int8['peak_gb']:.2f} GB; "
         f"161-frame long-clip request {long_rec['seconds']:.2f} s ("
         + ", ".join(f"{k} {v:.2f} s" for k, v in long_rec["phases"].items())
-        + f"), peak {long_rec['peak_gb']:.2f} GB; "
-        f"whole run {time.perf_counter() - t_start:.0f} s; card {card}")
+        + f"), peak {long_rec['peak_gb']:.2f} GB; --load request {load['seconds']:.2f} s, "
+        "loads " + ", ".join(f"{r['what']} {r['bytes'] / 1e9 / r['seconds']:.2f} GB/s"
+                             for r in load["loads"])
+        + f", load peak {load['peak_gb']:.3f} GB for {load['dit_gb']:.3f} GB of DiT, phase "
+        f"{load['phase_s']:.1f} s; whole run {time.perf_counter() - t_start:.0f} s; card {card}")
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
              "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
              "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts,
-             "sample_cli_long": long_counts}
+             "sample_cli_long": long_counts, "sample_cli_load": load_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

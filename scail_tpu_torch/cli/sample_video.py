@@ -8,10 +8,16 @@ Input lines are "<prompt>@@<example_dir>"; the dir holds a reference image
 into tiles of `long_tile` frames overlapping by `long_overlap` (YAML args,
 default 21 and 8), each tile with its own slice of the pose latent.
 
+Weights: `--load <dir>` reads the DiT from the SAT layout
+<dir>/<latest>/mp_rank_00_model_states.pt and the VAE, CLIP and umt5 from the
+YAML's vae_pth / checkpoint_path files; a directory that exists but does not
+load raises.  Without a --load directory every model is random (smoke mode).
+
 Usage:
   python -m scail_tpu_torch.cli.sample_video \\
       --base configs/video_model/scail_1p3b.yaml configs/sampling/pose_cli.yaml \\
-      --input-type txt --input-file prompts.txt [--sampling-steps N] --device cuda
+      --input-type txt --input-file prompts.txt [--sampling-steps N] [--load DIR] \\
+      --device cuda
 """
 
 from __future__ import annotations

@@ -3,12 +3,14 @@
 Builds the engine from the same YAML graphs as sampling, a VideoPoseDataset
 over a directory of example dirs, and runs the Trainer with the RFLoss
 raw-pixel shared_step.  The DiT trains in f32 parameters with bf16 compute;
-the VAE, CLIP and text encoders are frozen.
+the VAE, CLIP and text encoders are frozen.  `--load <dir>` starts the DiT
+from a SAT checkpoint directory (<dir>/<latest>/mp_rank_00_model_states.pt,
+read in f32); the VAE and encoders then come from the YAML's file paths.
 
 Usage:
   python -m scail_tpu_torch.cli.train \\
       --base configs/video_model/scail_1p3b.yaml --data-root /path/to/examples \\
-      --save ckpts/run1 [--image-size 512 896 --num-frames 81] [--device cuda]
+      --save ckpts/run1 [--load DIR] [--image-size 512 896 --num-frames 81] [--device cuda]
 """
 
 from __future__ import annotations
@@ -22,7 +24,6 @@ from scail_tpu_torch.utils.config import load_configs, split_reference_config
 
 # flags of the JAX CLI that the port does not run yet, with the ROADMAP item
 UNPORTED_FLAGS = {
-    "load": "ROADMAP Queue 1 item 7 (real-weight loading)",
     "lora_rank": "ROADMAP Queue 1 item 12 (LoRA finetuning)",
     "mesh_seq": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
     "mesh_model": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
@@ -75,7 +76,10 @@ def main(argv=None):
     run_cfg, model_cfg = split_reference_config(load_configs(args.base))
     engine = VideoDiffusionEngine(dict(model_cfg), dict(run_cfg), device=args.device)
     dev = engine.device
-    engine.init_params(torch.Generator(device=dev).manual_seed(args.seed), trainable=True)
+    if args.load:
+        engine.load_checkpoint(args.load, trainable=True)
+    else:
+        engine.init_params(torch.Generator(device=dev).manual_seed(args.seed), trainable=True)
 
     def loss_fn(generator, batch):
         return engine.shared_step(generator, batch)[0]

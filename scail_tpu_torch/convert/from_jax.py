@@ -7,7 +7,9 @@ kernel transposed to nn.Linear's (out, in); the quantized codes qweight
 (in, out) int8 and qweight4 (in/2, out) uint8 of ops/quant.py keep their
 names and dtypes and are transposed the same way, to the port's (out, in)
 and (out, in/2); every other leaf keeps its name and layout, floats in f32
-and integers in their own dtype.  Stacked (L, ...) layer leaves are split into per-layer modules.
+and integers in their own dtype.  Stacked (L, ...) layer leaves are split into per-layer modules;
+a DiT tree in the save_attn_frac layout (layers/head_layers + layers/tail_layers, as the JAX
+trainer stores it) is first joined along the layer axis, as unsplit_layer_params does.
 Convolution kernels move from channels-last to PyTorch's (out, in, *k).
 This module imports no jax: it takes numpy arrays (np.asarray each leaf).
 """
@@ -58,9 +60,25 @@ def _stacked(params, leaf_fn, stack_key: str = "layers",
     return sd
 
 
+def _join(head, tail):
+    if isinstance(head, dict):
+        return {k: _join(head[k], tail[k]) for k in head}
+    return np.concatenate([np.asarray(head), np.asarray(tail)], axis=0)
+
+
+def _unsplit_layers(params):
+    """The JAX unsplit_layer_params, in numpy: layers/{head,tail}_layers ->
+    one (L, ...) stack."""
+    layers = params.get("layers")
+    if not (isinstance(layers, dict) and "head_layers" in layers):
+        return params
+    return {**params, "layers": _join(layers["head_layers"], layers["tail_layers"])}
+
+
 def dit_state_dict_from_jax(params, cfg=None) -> Dict[str, torch.Tensor]:
-    """`init_dit_params` / converted-checkpoint pytree -> `DiT.state_dict()`."""
-    return _stacked(params, _linear_leaf)
+    """`init_dit_params` / converted-checkpoint pytree, stacked or split for
+    save_attn_frac -> `DiT.state_dict()`."""
+    return _stacked(_unsplit_layers(params), _linear_leaf)
 
 
 def _conv_leaf(path: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:

@@ -2,19 +2,28 @@
 
 Holds the DiT, denoiser, sampler, conditioner, CLIP, VAE and training loss
 built from the YAML `model:` block through the port's registry, on one
-explicit torch.device, and exposes init_params / encode_first_stage /
-decode_first_stage / network_fn / sample and, for training, loss /
-add_noise_to_first_frame / shared_step.  Noise comes from an explicit
-torch.Generator.  The encoders are frozen: only the DiT is trained.
+explicit torch.device, and exposes init_params / load_checkpoint /
+encode_first_stage / decode_first_stage / network_fn / sample and, for
+training, loss / add_noise_to_first_frame / shared_step.  Noise comes from an
+explicit torch.Generator.  The encoders are frozen: only the DiT is trained.
+
+Weights: the VAE, CLIP and text-encoder wrappers read the files their YAML
+paths name when the engine builds them (memory-mapped, on the CPU), and the
+engine moves each to its device one parameter at a time, in the wrapper's
+compute dtype; `load_checkpoint` fills the DiT from a SAT checkpoint
+directory the same way.  Each load is recorded in `weight_loads`.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Dict, Optional, Tuple
+import time
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from scail_tpu_torch.convert.torch_ckpt import (load_dit_, load_torch_state_dict,
+                                                resolve_latest_checkpoint, to_device_)
 from scail_tpu_torch.ops.resize import resize_bilinear
 from scail_tpu_torch.utils.misc import append_dims, default
 from scail_tpu_torch.utils.registry import ensure_imports, instantiate_from_config
@@ -25,6 +34,16 @@ def _half_res(video):
     representation of the pose render)."""
     H, W = video.shape[-2:]
     return resize_bilinear(video, H // 2, W // 2)
+
+
+def _timed(fn, device: torch.device):
+    """(fn(), seconds), the device synchronised at both ends."""
+    sync = torch.cuda.synchronize if device.type == "cuda" else (lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = fn()
+    sync()
+    return out, time.perf_counter() - t0
 
 
 def resolve_device(device) -> torch.device:
@@ -76,9 +95,28 @@ class VideoDiffusionEngine:
         self.i2v_clip = build("i2v_clip_config", self.use_i2v_clip)
         self.first_stage_model = build("first_stage_config")
         self.loss_fn = build("loss_fn_config")
+        # {what, path, bytes, seconds} of every file loaded onto the device
+        self.weight_loads: List[Dict] = []
+        for what, wrapper in self._weight_holders():
+            if wrapper.model is not None:
+                n, s = _timed(lambda: to_device_(wrapper.model, self.device,
+                                                wrapper.config.compute_dtype), self.device)
+                self._record_load(what, wrapper.checkpoint_path, n, s)
+
+    def _weight_holders(self):
+        """(name, wrapper) of the frozen sub-models that read a file."""
+        out = [("Wan VAE", self.first_stage_model), ("CLIP", self.i2v_clip)]
+        out += [("text encoder", e) for e in getattr(self.conditioner, "embedders", [])]
+        return [(what, w) for what, w in out if w is not None and hasattr(w, "checkpoint_path")]
+
+    def _record_load(self, what, path, nbytes, seconds):
+        self.weight_loads.append(dict(what=what, path=path, bytes=nbytes, seconds=seconds))
+        print(f"{what} weights from {path}: {nbytes / 1e9:.3f} GB onto {self.device} in "
+              f"{seconds:.2f} s", flush=True)
 
     def init_params(self, generator: torch.Generator, trainable: bool = False):
-        """Random-init every sub-model that has no weights (smoke mode).
+        """Random-init every sub-model that has no weights (smoke mode), so
+        neither a loaded DiT nor a loaded encoder is touched.
         The DiT is built on the meta device and made one parameter at a time
         on the engine's device: for serving each parameter is cast to the
         compute dtype once drawn, so the DiT never holds a whole f32 copy (the
@@ -87,14 +125,15 @@ class VideoDiffusionEngine:
         those of an f32 build cast afterwards.  The text encoder keeps its
         width but is cut to 2 layers, as in the JAX engine: random weights
         only need shape-correct embeddings."""
-        dit = self.network.build("meta")
-        if trainable:
-            dit.init_weights_(generator, device=self.device)
-            self.dit = dit.requires_grad_(True).train()
-        else:
-            dit.init_weights_(generator, device=self.device,
-                              dtype=self.network.config.compute_dtype)
-            self.dit = dit.eval()
+        if self.dit is None:
+            dit = self.network.build("meta")
+            if trainable:
+                dit.init_weights_(generator, device=self.device)
+                self.dit = dit.requires_grad_(True).train()
+            else:
+                dit.init_weights_(generator, device=self.device,
+                                  dtype=self.network.config.compute_dtype)
+                self.dit = dit.eval()
         if self.first_stage_model is not None and self.first_stage_model.model is None:
             self.first_stage_model.init(generator, device=self.device)
         if self.i2v_clip is not None and self.i2v_clip.model is None:
@@ -106,10 +145,27 @@ class VideoDiffusionEngine:
                          device=self.device)
         return self.dit
 
-    def load_checkpoint(self, load_dir: str):
-        raise NotImplementedError(
-            f"loading {load_dir} into the port is not implemented yet (ROADMAP Queue 1: "
-            "real-weight loading waits for the released checkpoints)")
+    def load_checkpoint(self, load_dir: str, trainable: bool = False):
+        """Fill the DiT from the SAT layout `<dir>/<latest>/mp_rank_00_model_states.pt`,
+        one parameter at a time onto the engine's device: in the compute
+        dtype for serving, in f32 with gradients on when `trainable`.  A file
+        that does not load, a missing tensor or a wrong shape raises, and so
+        does a sub-model whose YAML path held no file: nothing falls back to
+        random weights."""
+        missing = [f"{what} ({w.__class__.__name__})" for what, w in self._weight_holders()
+                   if w.model is None]
+        if missing:
+            raise FileNotFoundError(f"loading {load_dir}: no weights for {', '.join(missing)}; "
+                                    "point the YAML's checkpoint_path / vae_pth at the files")
+        path = resolve_latest_checkpoint(load_dir)
+        print(f"loading DiT checkpoint from {path}", flush=True)
+        dit = self.network.build("meta")
+        dtype = torch.float32 if trainable else self.network.config.compute_dtype
+        n, s = _timed(lambda: load_dit_(dit, load_torch_state_dict(path), device=self.device,
+                                       dtype=dtype), self.device)
+        self._record_load("DiT", path, n, s)
+        self.dit = dit.requires_grad_(True).train() if trainable else dit.eval()
+        return self.dit
 
     def network_fn(self):
         """(x, c_noise, cond, **kw) -> velocity, over the DiT."""

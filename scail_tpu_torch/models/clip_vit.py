@@ -17,6 +17,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scail_tpu_torch.convert.torch_ckpt import (load_mapped_, load_torch_state_dict,
+                                                mapped_state_dict)
 from scail_tpu_torch.models.common import container, dense, gelu_exact, linear, parameter
 from scail_tpu_torch.models.common import random_init_
 from scail_tpu_torch.ops.norms import layer_norm
@@ -113,6 +115,39 @@ def clip_visual_tokens(model: ClipVisionTower, images, *, use_31_block: bool = T
     return model(images, use_31_block=use_31_block)
 
 
+# ClipVisionTower module inside layer {i} -> the reference's inside transformer.{i}
+_BLOCK_MODULES = {"norm1": "norm1", "to_qkv": "attn.to_qkv", "proj": "attn.proj",
+                  "norm2": "norm2", "mlp_fc1": "mlp.0", "mlp_fc2": "mlp.2"}
+
+
+def clip_vision_name(name: str) -> str:
+    """The reference's name (without its optional 'visual.' prefix) of a
+    ClipVisionTower parameter: the names differ, the layouts do not."""
+    name = name.replace(".scale", ".weight")  # LayerNorm
+    if not name.startswith("layers."):
+        return name
+    _, i, mod, leaf = name.split(".")
+    return f"transformer.{i}.{_BLOCK_MODULES[mod]}.{leaf}"
+
+
+def clip_vision_source(sd):
+    """`source` for torch_ckpt.mapped_state_dict over a checkpoint `sd` whose
+    names may carry the 'visual.' prefix (the JAX converter takes both)."""
+    def source(name):
+        key = clip_vision_name(name)
+        return (key if key in sd else "visual." + key), None
+
+    return source
+
+
+def clip_vision_state_dict_from_torch(sd, cfg: ClipVisionConfig):
+    """The reference checkpoint's visual tower ->
+    `ClipVisionTower(cfg).state_dict()`, in the file's dtype (the JAX
+    package's clip_vision_params_from_state_dict)."""
+    return mapped_state_dict(ClipVisionTower(cfg, device="meta"), sd, clip_vision_source(sd),
+                             "CLIP checkpoint")[0]
+
+
 def clip_preprocess(frames, image_size: int = 224):
     """(b, 3, H, W) in [-1, 1] -> resized (torch bicubic, no antialias) and
     normalized with the CLIP statistics."""
@@ -131,10 +166,15 @@ class CLIPModel:
     def __init__(self, dtype="bfloat16", checkpoint_path=None, device=None):
         self.config = ClipVisionConfig(dtype="bfloat16" if "bf" in str(dtype) else "float32")
         self.model = None
+        self.checkpoint_path = None
         if checkpoint_path and os.path.exists(str(checkpoint_path)):
-            raise NotImplementedError(
-                f"loading {checkpoint_path} into the port is not implemented yet "
-                "(ROADMAP Queue 1: real-weight loading)")
+            # the file's tensors, memory-mapped on the CPU in its dtype; the
+            # engine moves them to its device
+            self.checkpoint_path = str(checkpoint_path)
+            self.model = ClipVisionTower(self.config, device="meta")
+            sd = load_torch_state_dict(self.checkpoint_path)
+            load_mapped_(self.model, sd, clip_vision_source(sd),
+                         what=f"CLIP {self.checkpoint_path}")
 
     def init(self, generator: torch.Generator, cfg: ClipVisionConfig = None, device=None):
         self.config = cfg or self.config

@@ -22,7 +22,9 @@ import numpy as np
 import torch
 from torch import nn
 
-from scail_tpu_torch.models.common import container, gelu_tanh, linear, parameter
+from scail_tpu_torch.convert.torch_ckpt import (load_mapped_, load_torch_state_dict,
+                                                mapped_state_dict)
+from scail_tpu_torch.models.common import container, gelu_tanh, linear, parameter, random_init_
 from scail_tpu_torch.ops.norms import rms_norm
 from scail_tpu_torch.utils.registry import register
 
@@ -86,23 +88,22 @@ class UMT5Encoder(nn.Module):
         self.layers = nn.ModuleList(UMT5Block(cfg, device) for _ in range(cfg.num_layers))
         self.norm = container(scale=parameter(cfg.dim, fill=1.0, device=device))
 
-    def init_weights_(self, generator: torch.Generator) -> None:
-        """The JAX package's init scales (T5-style fan-in normals)."""
+    def init_weights_(self, generator: torch.Generator, *, device=None, dtype=None) -> None:
+        """The JAX package's init scales (T5-style fan-in normals).  An encoder
+        built on the meta device is made on `device` one parameter at a time,
+        each cast to `dtype` once drawn (common.random_init_)."""
         cfg = self.config
         d, nh = cfg.dim, cfg.num_heads
-        stds = {"q": (d * cfg.dim_attn) ** -0.5, "k": d ** -0.5, "v": d ** -0.5,
-                "o": (nh * cfg.head_dim) ** -0.5, "pos_emb": (2 * cfg.num_buckets * nh) ** -0.5,
+        stds = {"token_embedding": 1.0, "q": (d * cfg.dim_attn) ** -0.5, "k": d ** -0.5,
+                "v": d ** -0.5, "o": (nh * cfg.head_dim) ** -0.5,
+                "pos_emb": (2 * cfg.num_buckets * nh) ** -0.5,
                 "gate": d ** -0.5, "fc1": d ** -0.5, "fc2": cfg.dim_ffn ** -0.5}
-        with torch.no_grad():
-            for name, p in self.named_parameters():
-                parts = name.split(".")
-                if parts[-1] == "scale":
-                    p.fill_(1.0)
-                elif name == "token_embedding":
-                    p.normal_(0.0, 1.0, generator=generator)
-                else:
-                    key = parts[-2] if parts[-1] == "weight" else parts[-1]
-                    p.normal_(0.0, stds[key], generator=generator)
+
+        def std(name, p):
+            parts = name.split(".")
+            return stds[parts[-2] if parts[-1] == "weight" else parts[-1]]
+
+        random_init_(self, generator, std, device=device, dtype=dtype)
 
     def forward(self, ids, mask):
         """ids/mask (b, S) -> mask-zeroed (b, S, dim) states."""
@@ -134,6 +135,35 @@ class UMT5Encoder(nn.Module):
 
 def umt5_encode(model: UMT5Encoder, ids, mask):
     return model(ids, mask)
+
+
+# UMT5Encoder.state_dict() key inside layer {i} -> the reference T5Encoder's
+# name inside blocks.{i} (models_t5_umt5-xxl-enc-bf16.pth)
+_BLOCK_NAMES = {
+    "norm1.scale": "norm1.weight", "q.weight": "attn.q.weight", "k.weight": "attn.k.weight",
+    "v.weight": "attn.v.weight", "o.weight": "attn.o.weight",
+    "pos_emb": "pos_embedding.embedding.weight", "norm2.scale": "norm2.weight",
+    "gate.weight": "ffn.gate.0.weight", "fc1.weight": "ffn.fc1.weight",
+    "fc2.weight": "ffn.fc2.weight",
+}
+
+
+def umt5_source(name: str):
+    """(key in the reference's file, layout fix) of a UMT5Encoder parameter:
+    the names differ, the (out, in) layouts do not."""
+    if name == "token_embedding":
+        return "token_embedding.weight", None
+    if name == "norm.scale":
+        return "norm.weight", None
+    _, i, rest = name.split(".", 2)
+    return f"blocks.{i}.{_BLOCK_NAMES[rest]}", None
+
+
+def umt5_state_dict_from_torch(sd, cfg: UMT5Config):
+    """The reference encoder's state dict -> `UMT5Encoder(cfg).state_dict()`,
+    in the file's dtype (the JAX package's umt5_params_from_state_dict)."""
+    return mapped_state_dict(UMT5Encoder(cfg, device="meta"), sd, umt5_source,
+                             "umt5 checkpoint")[0]
 
 
 class StableHashTokenizer:
@@ -191,24 +221,27 @@ class T5EncoderModel:
         self.config = UMT5Config(dtype="bfloat16" if "bf" in str(dtype) else "float32")
         self.max_length = max_length
         self.model = None
-        if checkpoint_path and os.path.exists(str(checkpoint_path)):
-            raise NotImplementedError(
-                f"loading {checkpoint_path} into the port is not implemented yet "
-                "(ROADMAP Queue 1: real-weight loading)")
+        self.checkpoint_path = None
         if tokenizer_path and os.path.exists(str(tokenizer_path)):
             from transformers import AutoTokenizer
 
             self.tokenizer = _HFTok(AutoTokenizer.from_pretrained(tokenizer_path), max_length)
         else:
-            self.tokenizer = StableHashTokenizer(max_length)
+            self.tokenizer = StableHashTokenizer(max_length, self.config.vocab_size)
+        if checkpoint_path and os.path.exists(str(checkpoint_path)):
+            # the file's tensors, memory-mapped on the CPU in its dtype; the
+            # engine moves them to its device
+            self.checkpoint_path = str(checkpoint_path)
+            self.model = UMT5Encoder(self.config, device="meta")
+            load_mapped_(self.model, load_torch_state_dict(self.checkpoint_path), umt5_source,
+                         what=f"umt5 {self.checkpoint_path}")
 
     def init(self, generator: torch.Generator, cfg: UMT5Config = None, device=None):
         self.config = cfg or self.config
         if isinstance(self.tokenizer, StableHashTokenizer):
             self.tokenizer.vocab_size = self.config.vocab_size
-        self.model = UMT5Encoder(self.config, device=device)
-        self.model.init_weights_(generator)
-        self.model.to(self.config.compute_dtype)
+        self.model = UMT5Encoder(self.config, device="meta")
+        self.model.init_weights_(generator, device=device, dtype=self.config.compute_dtype)
         return self.model
 
     def __call__(self, texts):

@@ -13,7 +13,8 @@ equivalent modes, as in the JAX package:
 Layout inside is channels-first (b, c, t, h, w) for F.conv3d/conv2d; the
 public `vae_encode`/`vae_decode` keep the JAX package's (b, t, c, h, w).
 Convolutions are plain torch (cuDNN), as the JAX package leaves them to XLA.
-State-dict paths mirror the JAX parameter tree.
+State-dict paths mirror the JAX parameter tree and the reference's module
+paths; WanVAE(vae_pth=...) loads Wan2.1_VAE.pth (convert/wan_vae_ckpt.py).
 """
 
 from __future__ import annotations
@@ -27,6 +28,8 @@ import torch
 import torch.nn.functional as F
 from torch import nn
 
+from scail_tpu_torch.convert.torch_ckpt import load_mapped_, load_torch_state_dict
+from scail_tpu_torch.convert.wan_vae_ckpt import wan_vae_source
 from scail_tpu_torch.models.common import container, random_init_
 from scail_tpu_torch.ops.norms import channel_rms_norm
 from scail_tpu_torch.utils.registry import register
@@ -379,10 +382,14 @@ class WanVAE:
         self.config = WanVAEConfig(z_dim=z_dim,
                                    dtype="bfloat16" if "bfloat16" in str(dtype) else "float32")
         self.model: Optional[WanVAEModel] = None
+        self.checkpoint_path = None
         if vae_pth and os.path.exists(str(vae_pth)):
-            raise NotImplementedError(
-                f"loading {vae_pth} into the port is not implemented yet (ROADMAP Queue 1: "
-                "real-weight loading)")
+            # the file's tensors, memory-mapped on the CPU in its dtype; the
+            # engine moves them to its device
+            self.checkpoint_path = str(vae_pth)
+            self.model = WanVAEModel(self.config, device="meta")
+            load_mapped_(self.model, load_torch_state_dict(self.checkpoint_path), wan_vae_source,
+                         what=f"Wan VAE {self.checkpoint_path}")
 
     def init(self, generator: torch.Generator, cfg: WanVAEConfig = None, device=None):
         self.config = cfg or self.config

@@ -395,9 +395,10 @@ def test_profiler_reads_clock_and_power_samples():
     assert profile._clock_stats(["[N/A], [N/A]"]) is None
 
 
-# modules of JAX or of the JAX package (but not of scail_tpu_torch)
+# modules of JAX, of ml_dtypes (JAX's bf16 for numpy) or of the JAX package
+# (but not of scail_tpu_torch)
 _FOREIGN = ("m == 'jax' or m.startswith('jax.') or m == 'scail_tpu' "
-            "or m.startswith('scail_tpu.')")
+            "or m.startswith('scail_tpu.') or m == 'ml_dtypes'")
 
 
 def test_port_never_imports_jax():
@@ -412,7 +413,7 @@ def test_port_never_imports_jax():
         "assert 'scail_tpu_torch.cli.sample_video' in names, names\n"
         "assert 'scail_tpu_torch.cli.train' in names, names\n"
         "for m in ('ops.quant', 'ops.fused_norms', 'cli.bench_14b_quant', "
-        "'cli.bench_14b_e2e'):\n"
+        "'cli.bench_14b_e2e', 'convert.torch_ckpt', 'convert.wan_vae_ckpt'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -424,22 +425,22 @@ def test_port_never_imports_jax():
 
 
 def test_port_sources_never_import_jax_or_the_jax_package():
-    """No source of scail_tpu_torch/, nor chip_smoke.py, imports jax or
-    scail_tpu, by statement or by importlib."""
-    pattern = re.compile(r"^\s*(?:from|import)\s+(?:jax|scail_tpu)(?:[.\s,]|$)"
-                         r"|import_module\(\s*[\"'](?:jax|scail_tpu)[\"'.]", re.M)
+    """No source of scail_tpu_torch/, nor chip_smoke.py, imports jax,
+    ml_dtypes or scail_tpu, by statement or by importlib."""
+    pattern = re.compile(r"^\s*(?:from|import)\s+(?:jax|ml_dtypes|scail_tpu)(?:[.\s,]|$)"
+                         r"|import_module\(\s*[\"'](?:jax|ml_dtypes|scail_tpu)[\"'.]", re.M)
     files = [os.path.join(ROOT, "chip_smoke.py")]
     for d, _, names in os.walk(os.path.join(ROOT, "scail_tpu_torch")):
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30
     for new in ("ops/quant.py", "ops/fused_norms.py", "cli/bench_14b_quant.py",
-                "cli/bench_14b_e2e.py"):
+                "cli/bench_14b_e2e.py", "convert/torch_ckpt.py", "convert/wan_vae_ckpt.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}
     assert not bad, bad
     assert pattern.search("from scail_tpu.data import video") and \
-        pattern.search("import jax.numpy as jnp") and \
+        pattern.search("import jax.numpy as jnp") and pattern.search("import ml_dtypes") and \
         not pattern.search("from scail_tpu_torch.ops import attention")
 
 

@@ -8,6 +8,8 @@
 * annealing_lr, and three steps of clipping + EMA-Adam against the optax chain
   of the JAX Trainer, the optimizer state carried across by
   ema_adam_state_from_jax (1e-6 relative).
+* The weight bridge joins the save_attn_frac split layout (params and
+  EMA-Adam state) into the stacked one.
 * Trainer: NaN skip, gradient accumulation, exact save/resume, checkpoint GC.
 * The train CLI on the CPU at toy size: 2 iterations, a checkpoint, a resume.
 * The host helpers the port copied from the JAX package agree with it.
@@ -26,7 +28,8 @@ import yaml
 from jax.experimental.pallas import tpu as pltpu
 
 from scail_tpu.models.dit import DiTConfig as JaxDiTConfig
-from scail_tpu.models.dit import dit_forward, init_dit_params
+from scail_tpu.models.dit import dit_forward, init_dit_params, split_layer_params
+from scail_tpu.training.ema_adam import EmaAdamState as JaxEmaAdamState
 from scail_tpu.training.ema_adam import fused_ema_adam
 from scail_tpu.training.ema_adam import swap_in_ema as jax_swap_in_ema
 from scail_tpu.training.lr_schedules import annealing_lr as jax_annealing_lr
@@ -203,6 +206,47 @@ def test_clip_and_ema_adam_match_the_optax_chain():
             w = want_d[n].numpy()
             np.testing.assert_allclose(got_d[n].numpy(), w, rtol=1e-6,
                                        atol=1e-6 * np.abs(w).max(), err_msg=n)
+
+
+def _split_case():
+    """A 3-layer DiT's params and a random EMA-Adam state, stacked and in the
+    save_attn_frac split layout (2 head layers, 1 tail layer)."""
+    cfg = JaxDiTConfig(**dict(TINY, num_layers=3), remat=True, remat_policy="save_attn_frac",
+                       remat_save_frac=0.7)
+    params = init_dit_params(jax.random.PRNGKey(0), cfg)
+    rng = np.random.default_rng(0)
+    trees = [jax.tree.map(lambda p: rng.standard_normal(p.shape).astype(np.float32), params)
+             for _ in range(3)]
+    state = JaxEmaAdamState(count=jnp.asarray(3), exp_avg=trees[0], exp_avg_sq=trees[1],
+                            shadow=trees[2])
+    split = JaxEmaAdamState(count=state.count,
+                            **{f: split_layer_params(getattr(state, f), cfg)
+                               for f in ("exp_avg", "exp_avg_sq", "shadow")})
+    split_params = split_layer_params(params, cfg)
+    assert jax.tree.leaves(split_params["layers"]["tail_layers"])[0].shape[0] == 1
+    return params, split_params, state, split
+
+
+def _assert_equal_state_dicts(got, want):
+    assert set(got) == set(want) == set(DiT(DiTConfig(**dict(TINY, num_layers=3)),
+                                            device="meta").state_dict())
+    assert all(torch.equal(got[k], want[k]) for k in want)
+
+
+def test_bridge_joins_the_split_layer_layout():
+    """A DiT tree in the save_attn_frac layout (layers/head_layers +
+    layers/tail_layers, as the JAX trainer stores it) bridges to the same
+    state dict as the stacked tree."""
+    params, split, _, _ = _split_case()
+    _assert_equal_state_dicts(dit_state_dict_from_jax(split), dit_state_dict_from_jax(params))
+
+
+def test_bridge_joins_the_split_layer_layout_of_the_optimizer_state():
+    _, _, state, split = _split_case()
+    got, want = ema_adam_state_from_jax(split), ema_adam_state_from_jax(state)
+    assert got.count == want.count == 3
+    for f in ("exp_avg", "exp_avg_sq", "shadow"):
+        _assert_equal_state_dicts(getattr(got, f), getattr(want, f))
 
 
 class _Toy(torch.nn.Module):
@@ -384,7 +428,7 @@ def test_train_cli_trains_saves_and_resumes_on_cpu(tmp_path, monkeypatch):
     assert (save / "latest").read_text() == "3"
 
 
-@pytest.mark.parametrize("flag", [["--load", "x"], ["--lora-rank", "2"], ["--mesh-seq", "2"],
+@pytest.mark.parametrize("flag", [["--lora-rank", "2"], ["--mesh-seq", "2"],
                                   ["--distributed"], ["--shard-activations"]])
 def test_train_cli_raises_for_unported_flags(flag):
     from scail_tpu_torch.cli import train
