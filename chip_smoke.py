@@ -17,7 +17,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  sliding-tile kernels (K7, K8) run with the main path's tables
                  for the video and the pose call of a layer; K2 and K5 also at
                  the STA path's own shape, the 1,792 dense ref rows against
-                 48,832 kv rows (K2 runs nowhere else).
+                 48,832 kv rows (K2 runs nowhere else).  K3 also at the text
+                 lengths of umt5's varlen_text, 1 and 37 keys.
   4. DiT      -- the 1.3B DiT, all 30 layers, random bf16 weights, CFG batch 2 at
                  512x896/81 frames (48,832 tokens): 30 + 30 kernel launches, a
                  finite output, its time; kernel path vs plain path on a small input.
@@ -37,6 +38,23 @@ Phases (any failure exits non-zero; no exception is swallowed):
   6b. train STA -- 2 steps at full width and depth from a YAML with
                  `attn_impl: sta` (exact K7/K8/K2/K3/K5 launches), gradients
                  kernel vs plain path.
+  6c. remat policies -- the train CLI at full width and depth, 2 steps each,
+                 from YAML copies that set `remat_policy`: dense save_attn,
+                 save_attn_frac 0.7 and offload_attn (K1 30 / 39 / 30 a step
+                 instead of 60), STA save_attn (K7 with the LSE 60 instead of
+                 120, K2 30 instead of 60); each one's step-1 loss bit-equal to
+                 `default`'s of phase 6 / 6b from the same seed, its step-1
+                 gradients within 1e-3 relative L2 of them, peak and step
+                 seconds, offload_attn's peak within 0.5 GB of `default`'s.
+                 Before each, on a 2-layer DiT at full width and 48,832 tokens,
+                 every kept flash output against a fresh launch on the q, k
+                 and v the recompute gives: bit-equal.
+  6d. LoRA    -- the train CLI with --lora-rank 16 at full width and depth, 2
+                 steps: the launches of phase 6, every base tensor bit-equal
+                 afterwards, every lora_b non-zero, the peak; merge_lora's
+                 forward against the factored one (relative L2 <= 3e-2); then
+                 save and resume under --lora-rank at 4 layers (<iter>/ema
+                 written, `latest` names the finished iteration).
   7. DiT 14B W8A16 -- the 14B DiT from configs/video_model/scail_14b.yaml
                  (hidden 5120, 40 layers, 40 heads, MLP 13,824) with random
                  int8 layer linears (cli/bench_14b_quant.py), one forward at
@@ -84,8 +102,9 @@ holds both against their plain versions at the main-path shapes).
 
 The line before the last is {"kernels": [...]}: per kernel its launches on the
 main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
-train CLI of phases 6 and 6b, the 14B paths of phases 7, 7b and 8 and the
---load request of phase 9, each counted from 0, and their sum), its largest
+train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
+phases 7, 7b and 8 and the --load request of phase 9, each counted from 0,
+and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
 larger of bytes moved over 3.35 TB/s and
@@ -355,6 +374,18 @@ def phase_kernels():
     k1, v1, k2, v2 = rnd(2, 512, 12, 128), rnd(2, 512, 12, 128), rnd(2, 257, 12, 128), \
         rnd(2, 257, 12, 128)
     results["dual_cross_attention"] = _dual_cross_main(q, k1, v1, k2, v2, rows, "1.3B")
+    # the text lengths of varlen_text (umt5): one token (uncond_text_length)
+    # and a prompt's 37 valid tokens, against the 257 CLIP keys
+    for text_len in (1, 37):
+        k1t, v1t = rnd(2, text_len, 12, 128), rnd(2, text_len, 12, 128)
+        ot = A.dual_cross_attention_fused(q, k1t, v1t, k2, v2)
+        torch.cuda.synchronize()
+        for sl in rows:
+            compare(f"dual_cross (2,{S},12,128)x({text_len},257) rows [{sl.start},{sl.stop}) out",
+                    ot[:, sl], A.dual_cross_attention_plain(
+                        q[:, sl].float(), *(t.float() for t in (k1t, v1t, k2, v2))),
+                    key="dual_cross_attention")
+        del k1t, v1t, ot
     qs, k1s, v1s, k2s, v2s = rnd(2, 200, 2, 128), rnd(2, 37, 2, 128), rnd(2, 37, 2, 128), \
         rnd(2, 21, 2, 128), rnd(2, 21, 2, 128)
     compare("dual_cross small (2,200,2,128)x(37,21) out",
@@ -1270,26 +1301,41 @@ TRAIN_LAUNCHES_PER_STEP = {"flash_attention_rope": 60, "dual_cross_attention": 6
 RESUME_LAYERS = 4
 
 
-def _train(argv, want_per_step, label):
+TRAIN_WATCHED = ("layers.0.qkv.weight", "layers.29.mlp_out.weight", "final_layer.linear.weight",
+                 "patch_embed.proj.weight")
+
+
+def _train(argv, want_per_step, label, watched=TRAIN_WATCHED, on_start=None,
+           on_first_grads=None):
     """The train CLI for 2 steps at full width and depth (`argv`): finite
-    losses, the DiT's parameters move, exactly `want_per_step` kernel launches
-    per step.  Returns (trainer, launch counts, stats)."""
+    losses, the `watched` parameters move, exactly `want_per_step` kernel
+    launches per step.  on_start(trainer) runs before the first step,
+    on_first_grads(grads) on the first step's parameter gradients before
+    clipping.  Returns (trainer, launch counts, stats)."""
     import math
 
     import torch
 
+    import scail_tpu_torch.training.engine as engine_mod
     from scail_tpu_torch.cli import train
     from scail_tpu_torch.training.engine import Trainer
 
-    watched = ("layers.0.qkv.weight", "layers.29.mlp_out.weight", "final_layer.linear.weight",
-               "patch_embed.proj.weight")
-    seen = {"before": {}, "step_s": []}
+    seen = {"before": {}, "step_s": [], "clips": 0}
     real_fit, real_step = Trainer.fit, Trainer.train_step
+    real_clip = engine_mod.clip_by_global_norm_
 
     def fit(self, *a, **kw):  # snapshot a few parameters before training
         if not seen["before"]:
             seen["before"] = {n: self.params[n].detach().clone() for n in watched}
+            if on_start is not None:
+                on_start(self)
         return real_fit(self, *a, **kw)
+
+    def clip(grads, max_norm):  # the first step's gradients, before clipping
+        seen["clips"] += 1
+        if seen["clips"] == 1 and on_first_grads is not None:
+            on_first_grads(grads)
+        return real_clip(grads, max_norm)
 
     def train_step(self, batch):  # wall time of each step, device synchronised
         torch.cuda.synchronize()
@@ -1299,7 +1345,7 @@ def _train(argv, want_per_step, label):
         seen["step_s"].append(time.perf_counter() - t0)
         return out
 
-    Trainer.fit, Trainer.train_step = fit, train_step
+    Trainer.fit, Trainer.train_step, engine_mod.clip_by_global_norm_ = fit, train_step, clip
     try:
         full = argv + ["--train-iters", "2"]
         log(f"{label}: python -m scail_tpu_torch.cli.train " + " ".join(full))
@@ -1311,7 +1357,8 @@ def _train(argv, want_per_step, label):
         total = time.perf_counter() - t0
         counts = launch_counts()
     finally:
-        Trainer.fit, Trainer.train_step = real_fit, real_step
+        Trainer.fit, Trainer.train_step, engine_mod.clip_by_global_norm_ = \
+            real_fit, real_step, real_clip
     step_s = seen["step_s"]
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     losses = [m["loss"] for m in trainer.history]
@@ -1390,7 +1437,10 @@ def phase_train(ex81):
 
     base = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
     argv = _train_argv(base, _data_root(ex81))
-    trainer, counts, stats = _train(argv, TRAIN_LAUNCHES_PER_STEP, "train")
+    trainer, counts, stats = _train(argv, TRAIN_LAUNCHES_PER_STEP, "train",
+                                    on_first_grads=_keep_grads("dense"))
+    BASELINE["dense"].update(loss=stats["losses"][0], peak_gb=stats["peak_gb"],
+                             step_s=stats["step_s"])
     stats["grad_rel"] = _grad_parity(trainer.model, {"attn_impl": "auto"}, {"attn_impl": "xla"},
                                      (3, 16, 16), "train")
     del trainer
@@ -1555,13 +1605,277 @@ def phase_train_sta(ex81):
     with open(sta_yaml, "w") as f:
         yaml.safe_dump(cfg, f)
     trainer, counts, stats = _train(_train_argv(sta_yaml, _data_root(ex81)),
-                                    STA_TRAIN_LAUNCHES_PER_STEP, "train STA")
+                                    STA_TRAIN_LAUNCHES_PER_STEP, "train STA",
+                                    on_first_grads=_keep_grads("sta"))
+    BASELINE["sta"].update(loss=stats["losses"][0], peak_gb=stats["peak_gb"],
+                           step_s=stats["step_s"])
     stats["grad_rel"] = _grad_parity(trainer.model, {"sta_impl": "auto"}, {"sta_impl": "xla"},
                                      STA_SMALL, "train STA")
     del trainer
     gc.collect()
     torch.cuda.empty_cache()
     return counts, stats
+
+
+# phase 6c: the remat policies that keep the flash outputs.  Per training
+# step, K1 (dense) launches once per layer in the forward and again in the
+# recompute of the layers that do not keep their outputs: 30 under save_attn
+# and offload_attn, 30 + 9 under save_attn_frac 0.7 (21 head layers); under
+# STA save_attn, K7 with the LSE (video and pose calls) and K2 (ref rows)
+# launch in the forward only.  Everything else is as under `default`.
+REMAT_POLICY_LAUNCHES = {
+    "save_attn": {**TRAIN_LAUNCHES_PER_STEP, "flash_attention_rope": 30},
+    "save_attn_frac": {**TRAIN_LAUNCHES_PER_STEP, "flash_attention_rope": 39},
+    "offload_attn": {**TRAIN_LAUNCHES_PER_STEP, "flash_attention_rope": 30},
+}
+STA_SAVE_ATTN_LAUNCHES_PER_STEP = {**STA_TRAIN_LAUNCHES_PER_STEP, "sta_attention_fwd_lse": 60,
+                                   "flash_attention": 30}
+# each policy's step-1 parameter gradients against `default`'s from the same
+# seed: relative L2 (the same kernels; only the recompute differs)
+POLICY_GRAD_REL_TOL = 1e-3
+# offload_attn keeps the flash outputs in pinned host memory: its device peak
+# may pass `default`'s by no more than this (GB)
+OFFLOAD_PEAK_SLACK_GB = 0.5
+LORA_RANK = 16
+# merge_lora's forward against the factored one (bf16 compute, 30 layers)
+LORA_MERGE_REL_TOL = DIT_REL_TOL
+
+# `default`'s step-1 loss and gradients (on the host), dense and STA, from
+# phases 6 and 6b
+BASELINE = {"dense": {}, "sta": {}}
+
+
+def _keep_grads(path):
+    def keep(grads):
+        BASELINE[path]["grads"] = {n: g.detach().to("cpu", copy=True) for n, g in grads.items()}
+    return keep
+
+
+def _grads_vs_baseline(path, out):
+    """on_first_grads hook: the relative L2 distance of the step-1 gradients
+    from `default`'s, one tensor on the card at a time, into out["rel"]."""
+    import torch
+
+    def compare(grads):
+        base = BASELINE[path]["grads"]
+        if set(grads) != set(base):
+            fail(f"{path}: the gradients' names differ from `default`'s")
+        diff = ref = torch.zeros((), dtype=torch.float64, device="cuda")
+        for n, g in grads.items():
+            b = base[n].to("cuda", non_blocking=True)
+            diff = diff + (g.double() - b.double()).square().sum()
+            ref = ref + b.double().square().sum()
+        out["rel"] = (diff.sqrt() / ref.sqrt()).item()
+    return compare
+
+
+def _policy_yaml(label, **params):
+    """A copy of the 1.3B YAML under build/chip_smoke/ with network params
+    set (checkpoint_activations is on there, so the DiT remats)."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
+        cfg = yaml.safe_load(f)
+    nc = cfg["model"]["network_config"]["params"]
+    if not nc.get("transformer_args", {}).get("checkpoint_activations"):
+        fail("the 1.3B YAML does not turn remat on (checkpoint_activations)")
+    nc.update(params)
+    path = os.path.join(WORK, f"scail_1p3b_{label}.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cfg, f)
+    return path
+
+
+def _stash_check(policy, **params):
+    """The flash outputs a policy keeps against a fresh launch on the q, k
+    and v that the recompute gives (they must be bit-equal, or the recompute
+    would pair the kept outputs with other inputs): a 2-layer DiT at full
+    width, batch 1, 48,832 tokens, one forward and backward.  Not counted."""
+    import torch
+
+    from scail_tpu_torch.models import dit as dit_mod
+    from scail_tpu_torch.ops.attention import FlashStash
+
+    diffs = []
+
+    class CheckedStash(FlashStash):
+        def replay(self, launch):
+            kept = super().replay(launch)
+            fresh = launch()
+            diffs.append(max((a.float() - b.float()).abs().max().item()
+                             for a, b in zip(kept, fresh)))
+            return kept
+
+    dit = _build_dit(num_layers=2, remat_policy=policy, **params)
+    dit.requires_grad_(True).train()
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(6), 21, 64, 112)
+    inp = {k: v[:1] for k, v in inp.items()}
+    x, t, ctx = inp.pop("x"), inp.pop("timesteps"), inp.pop("context")
+    dit_mod.FlashStash = CheckedStash
+    try:
+        out = dit(x, t, ctx, **inp)
+        out.float().square().mean().backward()
+        torch.cuda.synchronize()
+    finally:
+        dit_mod.FlashStash = FlashStash
+    kept_layers = dit_mod.kept_flash_layers(dit.config)
+    per_layer = 3 if dit.config.attn_impl == "sta" else 1
+    log(f"stash check {policy} {params or ''}: {len(diffs)} kept flash outputs in {kept_layers} "
+        f"of 2 layers against a fresh launch on the recomputed inputs: max abs diff "
+        f"{max(diffs) if diffs else None}")
+    if len(diffs) != kept_layers * per_layer or any(d != 0 for d in diffs):
+        fail(f"{policy}: the kept flash outputs are not those of the recomputed q, k and v")
+    del dit, out
+    torch.cuda.empty_cache()
+    return max(diffs)
+
+
+def phase_train_remat(ex81):
+    """Phase 6c: the train CLI at full width and depth under each remat
+    policy that keeps the flash outputs (dense save_attn, save_attn_frac 0.7,
+    offload_attn; STA save_attn): exact launches, step 1's loss bit-equal to
+    `default`'s (phases 6, 6b) from the same seed, the step-1 gradients within
+    POLICY_GRAD_REL_TOL, peaks and step seconds; before each, the kept outputs
+    against a fresh launch (_stash_check).  Returns ({path: launch counts},
+    {policy: stats})."""
+    import gc
+
+    import torch
+
+    t_phase = time.perf_counter()
+    counts, stats = {}, {}
+    runs = [("save_attn", "dense", dict(remat_policy="save_attn")),
+            ("save_attn_frac", "dense", dict(remat_policy="save_attn_frac", remat_save_frac=0.7)),
+            ("offload_attn", "dense", dict(remat_policy="offload_attn")),
+            ("sta_save_attn", "sta", dict(remat_policy="save_attn", attn_impl="sta"))]
+    for label, path, params in runs:
+        stash_diff = _stash_check(params["remat_policy"],
+                                  **{k: v for k, v in params.items() if k != "remat_policy"})
+        want = (STA_SAVE_ATTN_LAUNCHES_PER_STEP if path == "sta"
+                else REMAT_POLICY_LAUNCHES[params["remat_policy"]])
+        grads = {}
+        trainer, c, st = _train(_train_argv(_policy_yaml(label, **params), _data_root(ex81)),
+                                want, f"train {label}",
+                                on_first_grads=_grads_vs_baseline(path, grads))
+        st.update(grad_rel=grads["rel"], stash_max_diff=stash_diff,
+                  loss_equal=st["losses"][0] == BASELINE[path]["loss"])
+        log(f"train {label}: step-1 loss {st['losses'][0]!r} against default's "
+            f"{BASELINE[path]['loss']!r} (bit-equal {st['loss_equal']}); step-1 gradients "
+            f"relative L2 {grads['rel']:.3e} from default's (tol {POLICY_GRAD_REL_TOL}); peak "
+            f"{st['peak_gb']:.2f} GB against default's {BASELINE[path]['peak_gb']:.2f} GB; steps "
+            f"{[round(x, 2) for x in st['step_s']]} s against default's "
+            f"{[round(x, 2) for x in BASELINE[path]['step_s']]} s")
+        if not st["loss_equal"]:
+            fail(f"{label}: step 1's loss differs from default's")
+        if not grads["rel"] <= POLICY_GRAD_REL_TOL:
+            fail(f"{label}: step 1's gradients differ from default's")
+        if label == "offload_attn" and \
+                st["peak_gb"] > BASELINE[path]["peak_gb"] + OFFLOAD_PEAK_SLACK_GB:
+            fail(f"offload_attn: device peak {st['peak_gb']:.2f} GB passes default's + "
+                 f"{OFFLOAD_PEAK_SLACK_GB} GB")
+        counts[f"train_cli_{label}"], stats[label] = c, st
+        del trainer
+        gc.collect()
+        torch.cuda.empty_cache()
+    for path in BASELINE.values():
+        path.pop("grads", None)
+    log(f"phase 6c (remat policies): {time.perf_counter() - t_phase:.1f} s")
+    return counts, stats
+
+
+def phase_train_lora(ex81):
+    """Phase 6d: the train CLI with --lora-rank 16 at full width and depth,
+    `default` remat: exact launches (those of the full fine-tune), every base
+    parameter bit-equal after 2 steps, every lora_b non-zero, the peak; then
+    merge_lora's forward against the factored forward on a small input; then
+    save and resume at RESUME_LAYERS layers under --lora-rank (<iter>/ema
+    written, `latest` names the finished iteration)."""
+    import gc
+    import math
+    import shutil
+
+    import torch
+
+    from scail_tpu_torch.cli import train
+    from scail_tpu_torch.training.checkpoint import read_latest
+    from scail_tpu_torch.training.lora import merge_lora
+
+    t_phase = time.perf_counter()
+    base_yaml = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
+    lora = ["--lora-rank", str(LORA_RANK)]
+    before = {}
+
+    def snapshot(trainer):  # the frozen base, on the host
+        before.update({n: t.detach().to("cpu", copy=True)
+                       for n, t in trainer.model.state_dict().items() if "lora_" not in n})
+
+    trainer, counts, st = _train(_train_argv(base_yaml, _data_root(ex81)) + lora,
+                                 TRAIN_LAUNCHES_PER_STEP, "train LoRA",
+                                 watched=("layers.0.qkv.lora_b", "layers.29.mlp_out.lora_b"),
+                                 on_start=snapshot)
+    model = trainer.model
+    state = model.state_dict()
+    changed = [n for n, t in before.items() if not torch.equal(state[n].cpu(), t)]
+    lora_b = [n for n in state if n.endswith("lora_b")]
+    zero_b = [n for n in lora_b if not bool(state[n].any())]
+    trained = sum(p.numel() for p in trainer.params.values())
+    log(f"train LoRA: {len(before)} base tensors bit-equal after 2 steps: {not changed}; "
+        f"{len(lora_b)} lora_b, all non-zero: {not zero_b}; {trained / 1e6:.2f} M trained "
+        f"parameters; peak {st['peak_gb']:.2f} GB (full fine-tune "
+        f"{BASELINE['dense']['peak_gb']:.2f} GB); steps {[round(x, 2) for x in st['step_s']]} s")
+    if changed or zero_b or len(lora_b) != 7 * model.config.num_layers:
+        fail(f"LoRA training: base tensors changed {changed[:4]}, zero lora_b {zero_b[:4]}, "
+             f"{len(lora_b)} lora_b")
+    st.update(base_bit_equal=not changed, trained_params=trained)
+    del before, state
+
+    # merge_lora: the merged DiT against the factored one, with B drawn so
+    # that the delta is ~10% of each output
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    with torch.no_grad():
+        for n, p in model.named_parameters():
+            if n.endswith("lora_b"):
+                p.normal_(0.0, 0.05, generator=gen)
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(9), 3, 16, 16)
+    x, t, ctx = inp.pop("x"), inp.pop("timesteps"), inp.pop("context")
+    with torch.inference_mode():
+        factored = model(x, t, ctx, **inp).float()
+        merge_lora(model)
+        merged = model(x, t, ctx, **inp).float()
+    rel = ((merged - factored).norm() / factored.norm()).item()
+    log(f"merge_lora: merged vs factored forward (2, 3, 16, 16, 16), 30 layers: relative L2 "
+        f"{rel:.3e} (tol {LORA_MERGE_REL_TOL})")
+    if not rel <= LORA_MERGE_REL_TOL or any("lora_" in n for n in model.state_dict()):
+        fail("merge_lora: the merged DiT disagrees with the factored one")
+    st["merge_rel"] = rel
+    del trainer, model, factored, merged
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # save and resume under --lora-rank at RESUME_LAYERS layers
+    cut_yaml = os.path.join(WORK, f"scail_1p3b_{RESUME_LAYERS}layers.yaml")
+    save = os.path.join(WORK, "train_run_lora")
+    shutil.rmtree(save, ignore_errors=True)
+    short = _train_argv(cut_yaml, _data_root(ex81)) + lora + ["--save", save]
+    first = train.main(short + ["--train-iters", "2"])
+    latest = read_latest(save)
+    has_ema = os.path.isfile(os.path.join(save, "2", "ema", "state.pt"))
+    del first
+    gc.collect()
+    resumed = train.main(short + ["--train-iters", "3", "--resume"])
+    log(f"train LoRA at {RESUME_LAYERS} layers: saved at step 2 (latest {latest!r}, "
+        f"<iter>/ema written: {has_ema}), resumed to step {resumed.step} (latest "
+        f"{read_latest(save)!r}), loss {resumed.history[0]['loss'] if resumed.history else None}")
+    if latest != "2" or not has_ema or resumed.step != 3 or read_latest(save) != "3" or \
+            not math.isfinite(resumed.history[0]["loss"]):
+        fail("LoRA save and resume did not go on from step 2 with its EMA double-save")
+    del resumed
+    shutil.rmtree(save, ignore_errors=True)
+    gc.collect()
+    torch.cuda.empty_cache()
+    st["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 6d (LoRA): {st['phase_s']:.1f} s")
+    return counts, st
 
 
 # the 14B paths' launches: one forward runs 8 quantized linears (qkv,
@@ -2175,6 +2489,8 @@ def main():
     long_counts, long_rec = phase_cli_long()
     train_counts, train = phase_train(ex81)
     sta_train_counts, sta_train = phase_train_sta(ex81)
+    remat_counts, remat = phase_train_remat(ex81)
+    lora_counts, lora = phase_train_lora(ex81)
     w8_counts, w8 = phase_dit14b_w8()
     w4_counts, w4 = phase_e2e_14b_w4()
     int8_counts, int8 = phase_cli_14b_int8(ex81)
@@ -2188,6 +2504,10 @@ def main():
         + f", with STA {sta_record['case']} {sta_record['seconds']:.2f} s; training steps "
         f"{[round(x, 2) for x in train['step_s']]} s, peak {train['peak_gb']:.2f} GB, with STA "
         f"{[round(x, 2) for x in sta_train['step_s']]} s, peak {sta_train['peak_gb']:.2f} GB; "
+        + "".join(f"under {k} {[round(x, 2) for x in v['step_s']]} s, peak {v['peak_gb']:.2f} "
+                  f"GB, gradients {v['grad_rel']:.2e} from default's; " for k, v in remat.items())
+        + f"LoRA rank {LORA_RANK} {[round(x, 2) for x in lora['step_s']]} s, peak "
+        f"{lora['peak_gb']:.2f} GB, merge {lora['merge_rel']:.2e}; "
         f"14B W8A16 forward {w8['fwd_ms']:.1f} ms ({w8['param_gb']:.2f} GB of parameters, "
         f"peak {w8['peak_gb']:.2f} GB); 14B W4A16 clip step {w4['step_s']} s, decode "
         f"{w4.get('vae_decode_s')} s ({w4['param_gb']} GB of parameters, peak {w4['peak_gb']} "
@@ -2203,7 +2523,8 @@ def main():
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
              "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
              "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts,
-             "sample_cli_long": long_counts, "sample_cli_load": load_counts}
+             "sample_cli_long": long_counts, "sample_cli_load": load_counts,
+             **remat_counts, "train_cli_lora": lora_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

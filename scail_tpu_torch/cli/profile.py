@@ -16,6 +16,10 @@ CLI does without a checkpoint) and profiles, each after one warm-up call:
                   backward (f32 parameters, bf16 compute) and the clipped
                   EMA-Adam update;
   * train_step_sta -- the same step with attn_impl='sta';
+  * train_step_save_attn -- the dense step under remat_policy='save_attn'
+                  (each layer's flash outputs kept across the recompute);
+  * train_step_lora -- the dense step fine-tuning LoRA factors of rank 16
+                  on the layer linears, the base frozen (training/lora.py);
   * dit14b_w4  -- one 14B DiT forward (hidden 5120, 40 layers) at CFG batch 2,
                   48,832 tokens, with random W4A16 layer linears
                   (bench_14b_quant.build_random_quant_params);
@@ -52,7 +56,11 @@ import torch
 
 ROOT = os.path.dirname(os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 PHASES = ("dit", "dit_sta", "vae_encode", "pose_encode", "vae_decode", "train_step",
-          "train_step_sta", "dit14b_w4", "dit14b_int8")
+          "train_step_sta", "train_step_save_attn", "train_step_lora", "dit14b_w4",
+          "dit14b_int8")
+TRAIN_CONFIGS = {"train_step": {}, "train_step_sta": {"attn_impl": "sta"},
+                 "train_step_save_attn": {"remat_policy": "save_attn"}}
+LORA_RANK = 16
 # kernel-name substrings by group, first match wins
 # (K1 keeps the name `flash_attention` it had before K2 was on a path)
 GROUPS = (("w8a16_matmul", ("w8a16_kernel",)),
@@ -206,14 +214,19 @@ def main(argv=None):
             rec = profile_phase(name, fn, a.out)
         print(json.dumps(dict(rec, device=card)), flush=True)
     del calls, x, ctx, ref, pose, clip, z
-    train = [n for n in ("train_step", "train_step_sta") if n in a.phases]
+    train = [n for n in TRAIN_CONFIGS if n in a.phases]
     if train:
         step = _train_step_call(engine, gen)
         for name in train:
-            engine.dit.config = sta_cfg if name.endswith("_sta") else dense_cfg
+            engine.dit.config = dataclasses.replace(dense_cfg, **TRAIN_CONFIGS[name])
             rec = profile_phase(name, step, a.out)
             print(json.dumps(dict(rec, device=card)), flush=True)
+        del step
     engine.dit.config = dense_cfg
+    if "train_step_lora" in a.phases:
+        torch.cuda.empty_cache()
+        rec = profile_phase("train_step_lora", _train_step_call(engine, gen, LORA_RANK), a.out)
+        print(json.dumps(dict(rec, device=card)), flush=True)
 
 
 def _dit14b_call(name):
@@ -237,12 +250,19 @@ def _dit14b_call(name):
     return lambda: run_dit(dit, inp)
 
 
-def _train_step_call(engine, gen):
+def _train_step_call(engine, gen, lora_rank=0):
     """One step of the train CLI's Trainer on a random 81-frame 512x896 batch
-    (the text states drawn at umt5-xxl width in place of the conditioner)."""
+    (the text states drawn at umt5-xxl width in place of the conditioner);
+    with lora_rank, of LoRA factors on a frozen base, as `train --lora-rank`."""
     from scail_tpu_torch.training.engine import TrainConfig, Trainer
 
+    engine.dit = None  # init_params fills only a missing DiT: a fresh f32 one to train
     engine.init_params(gen, trainable=True)
+    if lora_rank:
+        from scail_tpu_torch.training.lora import add_lora, lora_mask
+
+        add_lora(engine.dit, torch.Generator().manual_seed(1), rank=lora_rank)
+        lora_mask(engine.dit)
     trainer = Trainer(engine.dit, lambda g, b: engine.shared_step(g, b)[0],
                       TrainConfig(train_iters=100, warmup_iters=1))
     batch = {"mp4": torch.rand(1, 81, 3, 512, 896, generator=gen, device="cuda") * 2 - 1,

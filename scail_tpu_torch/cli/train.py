@@ -6,11 +6,16 @@ raw-pixel shared_step.  The DiT trains in f32 parameters with bf16 compute;
 the VAE, CLIP and text encoders are frozen.  `--load <dir>` starts the DiT
 from a SAT checkpoint directory (<dir>/<latest>/mp_rank_00_model_states.pt,
 read in f32); the VAE and encoders then come from the YAML's file paths.
+`--lora-rank r` fine-tunes LoRA factors of rank r on the DiT's layer linears
+(training/lora.py) with the base frozen.  The YAML's network params choose
+the remat policy (`remat_policy`: default, save_attn, save_attn_frac with
+`remat_save_frac`, offload_attn) when `checkpoint_activations` is on.
 
 Usage:
   python -m scail_tpu_torch.cli.train \\
       --base configs/video_model/scail_1p3b.yaml --data-root /path/to/examples \\
-      --save ckpts/run1 [--load DIR] [--image-size 512 896 --num-frames 81] [--device cuda]
+      --save ckpts/run1 [--load DIR] [--lora-rank 16] [--image-size 512 896 --num-frames 81] \\
+      [--device cuda]
 """
 
 from __future__ import annotations
@@ -24,7 +29,6 @@ from scail_tpu_torch.utils.config import load_configs, split_reference_config
 
 # flags of the JAX CLI that the port does not run yet, with the ROADMAP item
 UNPORTED_FLAGS = {
-    "lora_rank": "ROADMAP Queue 1 item 12 (LoRA finetuning)",
     "mesh_seq": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
     "mesh_model": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
     "distributed": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
@@ -49,7 +53,8 @@ def build_argparser():
     p.add_argument("--seed", type=int, default=1234)
     p.add_argument("--device", default="cuda",
                    help="torch device; 'cuda' raises when CUDA is not available")
-    p.add_argument("--lora-rank", type=int, default=0)
+    p.add_argument("--lora-rank", type=int, default=0,
+                   help=">0 fine-tunes LoRA factors of this rank on the DiT")
     p.add_argument("--mesh-seq", type=int, default=1)
     p.add_argument("--mesh-model", type=int, default=1)
     p.add_argument("--shard-activations", action="store_true")
@@ -80,6 +85,18 @@ def main(argv=None):
         engine.load_checkpoint(args.load, trainable=True)
     else:
         engine.init_params(torch.Generator(device=dev).manual_seed(args.seed), trainable=True)
+    if args.lora_rank > 0:
+        from scail_tpu_torch.training.lora import add_lora, lora_mask
+
+        add_lora(engine.dit, torch.Generator().manual_seed(args.seed + 1), rank=args.lora_rank)
+        lora_mask(engine.dit)
+        print(f"LoRA finetuning enabled (rank {args.lora_rank})", flush=True)
+    dcfg = engine.dit.config
+    if dcfg.remat and dcfg.remat_policy == "save_attn_frac":
+        from scail_tpu_torch.models.dit import save_attn_head_layers
+
+        print(f"save_attn_frac remat: {save_attn_head_layers(dcfg)} head layers keep their "
+              "flash outputs", flush=True)
 
     def loss_fn(generator, batch):
         return engine.shared_step(generator, batch)[0]

@@ -10,7 +10,8 @@ and (out, in/2); every other leaf keeps its name and layout, floats in f32
 and integers in their own dtype.  Stacked (L, ...) layer leaves are split into per-layer modules;
 a DiT tree in the save_attn_frac layout (layers/head_layers + layers/tail_layers, as the JAX
 trainer stores it) is first joined along the layer axis, as unsplit_layer_params does.
-Convolution kernels move from channels-last to PyTorch's (out, in, *k).
+LoRA factors (lora_a (in, r), lora_b (r, out), lora_scale) keep their names and layouts,
+as `layers.3.qkv.lora_a`.  Convolution kernels move from channels-last to PyTorch's (out, in, *k).
 This module imports no jax: it takes numpy arrays (np.asarray each leaf).
 """
 
@@ -27,6 +28,8 @@ def _flatten(tree, prefix: str = "") -> Iterator[Tuple[str, np.ndarray]]:
         path = f"{prefix}/{k}" if prefix else str(k)
         if isinstance(v, dict):
             yield from _flatten(v, path)
+        elif isinstance(v, tuple) and not v:
+            continue  # optax's MaskedNode: a frozen leaf of a masked optimizer state
         else:
             yield path, np.asarray(v)
 
@@ -109,7 +112,10 @@ def clip_vision_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
 
 def ema_adam_state_from_jax(state):
     """A JAX `EmaAdamState` (count, exp_avg, exp_avg_sq, shadow: DiT-shaped
-    pytrees) -> the port's EmaAdamState keyed like `DiT.named_parameters()`."""
+    pytrees, stacked or split) -> the port's EmaAdamState keyed like
+    `DiT.named_parameters()`.  Under a train mask (LoRA: the state that
+    optax.multi_transform leaves) the frozen leaves are MaskedNodes and get
+    no entry, as the port keeps no state for frozen parameters."""
     from scail_tpu_torch.training.ema_adam import EmaAdamState
 
     return EmaAdamState(count=int(np.asarray(state.count)),

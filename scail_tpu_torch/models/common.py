@@ -15,13 +15,18 @@ from scail_tpu_torch.ops.quant import QuantizedLinear, dense_quantized
 def dense(layer: nn.Module, x, impl: str = "auto"):
     """x @ W^T + b in x.dtype (the JAX `dense` with an (in, out) kernel).  A
     QuantizedLinear goes to the W8A16/W4A16 matmul (ops/quant.py; `impl`
-    'auto' kernel, 'xla' plain version).  The LoRA branch is not ported."""
-    if hasattr(layer, "lora_a"):
-        raise NotImplementedError("LoRA dense layers are not ported (ROADMAP Queue 1)")
+    'auto' kernel, 'xla' plain version).  A layer that carries LoRA factors
+    (training/lora.py: lora_a (in, r), lora_b (r, out), lora_scale) adds
+    lora_scale * (x @ lora_a) @ lora_b after the bias, in x.dtype."""
     if isinstance(layer, QuantizedLinear):
-        return dense_quantized(layer, x, impl=impl)
-    bias = layer.bias.to(x.dtype) if layer.bias is not None else None
-    return F.linear(x, layer.weight.to(x.dtype), bias)
+        y = dense_quantized(layer, x, impl=impl)
+    else:
+        bias = layer.bias.to(x.dtype) if layer.bias is not None else None
+        y = F.linear(x, layer.weight.to(x.dtype), bias)
+    if getattr(layer, "lora_a", None) is not None:
+        delta = (x @ layer.lora_a.to(x.dtype)) @ layer.lora_b.to(x.dtype)
+        y = y + layer.lora_scale.to(x.dtype) * delta
+    return y
 
 
 def gelu_tanh(x):

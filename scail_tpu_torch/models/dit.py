@@ -19,10 +19,14 @@ k in torch and runs the int8-QK flash kernel (ops/attention.py
 attention_int8).  Linears replaced by ops/quant.py's QuantizedLinear (W8A16 /
 W4A16) run the quantized matmul kernel.  The JAX package's Ulysses, ring and
 MoE options raise NotImplementedError.  For training,
-`remat` checkpoints each layer (the JAX `default` remat policy); the policies
-that save or offload the flash outputs raise.  Parameters may be f32 (training)
-or the compute dtype (serving): every use casts them to the compute dtype,
-which costs nothing when they already have it.
+`remat` checkpoints each layer under `remat_policy`, as the JAX package's
+policies: 'default' recomputes the whole layer; 'save_attn' keeps each
+layer's flash outputs (out, lse) across the recompute, so the recompute
+launches no flash forward; 'save_attn_frac' does so for the first
+save_attn_head_layers() layers and recomputes the rest; 'offload_attn' keeps
+them in pinned host memory (ops/attention.py FlashStash).  Parameters may be
+f32 (training) or the compute dtype (serving): every use casts them to the
+compute dtype, which costs nothing when they already have it.
 State-dict paths mirror the JAX parameter tree (convert/from_jax.py).
 """
 
@@ -34,12 +38,13 @@ from typing import Optional, Tuple
 
 import torch
 from torch import nn
-from torch.utils.checkpoint import checkpoint
+from torch.utils.checkpoint import checkpoint, noop_context_fn
 
 from scail_tpu_torch.models.common import (container, dense, gelu_exact, gelu_tanh, linear,
                                            parameter, random_init_, silu, timestep_embedding)
 from scail_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
-from scail_tpu_torch.ops.attention import attention, attention_int8, dual_cross_attention
+from scail_tpu_torch.ops.attention import (FlashStash, attention, attention_int8,
+                                           dual_cross_attention)
 from scail_tpu_torch.ops.fused_norms import adaln_layer_norm, apply_rotary_fused
 from scail_tpu_torch.ops.norms import layer_norm, rms_norm
 from scail_tpu_torch.ops.rotary import build_scail_rope
@@ -54,9 +59,9 @@ UNPORTED_ATTN = {
     "ulysses": "ROADMAP Queue 1: torch.distributed sequence parallelism (Ulysses)",
     "ring": "ROADMAP Queue 1: torch.distributed sequence parallelism (ring attention)",
 }
-# remat policies of the JAX package other than 'default' (full per-layer
-# recompute), which keep the flash outputs across the recompute
-UNPORTED_REMAT = ("save_attn", "save_attn_frac", "offload_attn")
+# remat policies: 'default' recomputes each layer; the others keep the flash
+# outputs across the recompute (on the device, or in pinned host memory)
+REMAT_POLICIES = ("default", "save_attn", "save_attn_frac", "offload_attn")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -88,6 +93,9 @@ class DiTConfig:
     dtype: str = "bfloat16"
     remat: bool = False
     remat_policy: str = "default"
+    # save_attn_frac: the share of the layers (the first ones) that keep the
+    # flash outputs
+    remat_save_frac: float = 0.7
     attn_impl: str = "auto"
     # attn_impl='sta' (ops/sta.py): strip tiles of (sta_tile[0] latent frames,
     # sta_tile[1] latent rows, full width), the clamped window in tiles, the
@@ -160,6 +168,7 @@ class DiTConfig:
             sta_pose_kv_window=p.get("sta_pose_kv_window", 3),
             remat=p.get("remat", False),
             remat_policy=p.get("remat_policy", "default"),
+            remat_save_frac=p.get("remat_save_frac", 0.7),
             dtype={"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}.get(
                 p.get("dtype", "bf16"), p.get("dtype", "bfloat16")),
         )
@@ -180,12 +189,9 @@ class DiTConfig:
             if getattr(self, field) not in ATTN_IMPLS:
                 raise ValueError(f"unknown {field} {getattr(self, field)!r}, expected one of "
                                  f"{ATTN_IMPLS}")
-        if self.remat and self.remat_policy in UNPORTED_REMAT:
-            raise NotImplementedError(f"remat_policy={self.remat_policy!r} is not ported: "
-                                      "ROADMAP Queue 1 item 12a (remat policies that save "
-                                      "the flash outputs)")
-        if self.remat and self.remat_policy != "default":
-            raise ValueError(f"unknown remat_policy {self.remat_policy!r}")
+        if self.remat and self.remat_policy not in REMAT_POLICIES:
+            raise ValueError(f"unknown remat_policy {self.remat_policy!r}, expected one of "
+                             f"{REMAT_POLICIES}")
         if self.num_experts > 1:
             raise NotImplementedError("MoE MLP (num_experts > 1) is not ported: "
                                       "ROADMAP Queue 1, item 15 (ops/moe.py)")
@@ -384,12 +390,20 @@ class DiT(nn.Module):
                 hidden = hidden[:, sta.order]
                 attn_pos, video_rows = sta, sta.video_rows
         remat = cfg.remat and torch.is_grad_enabled()
-        for blk in self.layers:
+        keep = kept_flash_layers(cfg)
+        for i, blk in enumerate(self.layers):
             args = (blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos)
-            # remat: keep only each layer's input, recompute the layer in the
-            # backward (the JAX `default` policy: jax.checkpoint per layer)
-            hidden = (checkpoint(self._layer, *args, use_reentrant=False) if remat
-                      else self._layer(*args))
+            if not remat:
+                hidden = self._layer(*args)
+                continue
+            # remat: keep each layer's input and recompute the layer in the
+            # backward (jax.checkpoint per layer); the first `keep` layers also
+            # keep their flash outputs, which the recompute takes back
+            context_fn = noop_context_fn
+            if i < keep:
+                context_fn = FlashStash(cfg.remat_policy,
+                                        offload=cfg.remat_policy == "offload_attn").contexts
+            hidden = checkpoint(self._layer, *args, use_reentrant=False, context_fn=context_fn)
 
         fl = self.final_layer
         if cfg.share_adaln:
@@ -465,6 +479,21 @@ class DiT(nn.Module):
         # MLP
         mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, round_ln=True, impl=impl)
         return hidden + g_mlp * lin(blk.mlp_out, gelu_tanh(lin(blk.mlp_in, mi)))
+
+
+def save_attn_head_layers(cfg: DiTConfig) -> int:
+    """Number of leading layers the save_attn_frac policy keeps the flash
+    outputs of (the JAX function of the same name)."""
+    return max(0, min(cfg.num_layers, int(cfg.num_layers * cfg.remat_save_frac)))
+
+
+def kept_flash_layers(cfg: DiTConfig) -> int:
+    """Number of leading layers whose flash outputs the remat policy keeps."""
+    if not cfg.remat or cfg.remat_policy == "default":
+        return 0
+    if cfg.remat_policy == "save_attn_frac":
+        return save_attn_head_layers(cfg)
+    return cfg.num_layers
 
 
 @dataclasses.dataclass(frozen=True)

@@ -216,10 +216,13 @@ class T5EncoderModel:
 
     def __init__(self, max_length: int = 512, checkpoint_path=None, tokenizer_path=None,
                  dtype="bfloat16", varlen_text=False, uncond_text_length=1, **kw):
-        if varlen_text:
-            raise NotImplementedError("varlen_text is not ported")
         self.config = UMT5Config(dtype="bfloat16" if "bf" in str(dtype) else "float32")
         self.max_length = max_length
+        self.varlen_text = varlen_text
+        self.uncond_text_length = uncond_text_length
+        # the text length is padded to a multiple of this (the JAX engine
+        # sets it to its shard count; one device here)
+        self.cond_length_multiple = 1
         self.model = None
         self.checkpoint_path = None
         if tokenizer_path and os.path.exists(str(tokenizer_path)):
@@ -246,6 +249,26 @@ class T5EncoderModel:
 
     def __call__(self, texts):
         ids, mask = self.tokenizer(texts, return_mask=True)
+        return self.encode(ids, mask)
+
+    def encode(self, ids, mask):
+        """The states of token ids under their mask; with `varlen_text`,
+        trimmed to the valid tokens (varlen_length)."""
         dev = self.model.token_embedding.device
-        return self.model(torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev),
-                          torch.as_tensor(np.asarray(mask), dtype=torch.long, device=dev))
+        z = self.model(torch.as_tensor(np.asarray(ids), dtype=torch.long, device=dev),
+                       torch.as_tensor(np.asarray(mask), dtype=torch.long, device=dev))
+        if self.varlen_text:
+            if z.shape[0] != 1:
+                raise ValueError(f"varlen_text encodes one prompt at a time, got {z.shape[0]}")
+            z = z[:, :varlen_length(int(np.asarray(mask)[0].sum()), self.cond_length_multiple,
+                                    self.uncond_text_length)]
+        return z
+
+
+def varlen_length(num_valid: int, multiple: int, uncond_text_length: int) -> int:
+    """The text length under varlen_text (the JAX T5EncoderModel's trim):
+    the valid tokens padded to `multiple`, or `uncond_text_length` tokens
+    for a prompt of one token or none (the unconditional one)."""
+    if num_valid > 1:
+        return num_valid + (-num_valid) % multiple
+    return uncond_text_length

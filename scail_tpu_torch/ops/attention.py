@@ -22,10 +22,16 @@ kernel (or raises) for CUDA tensors; there is no fallback from a CUDA tensor
 to the plain version.  Each counts its launches in `LAUNCHES`.  `attention`,
 `dual_cross_attention` and `attention_int8` are differentiable: their
 torch.autograd.Functions are the counterparts of the JAX custom VJPs.
+`FlashStash` keeps the flash forward's (out, lse) of a checkpointed layer for
+its recompute, the JAX names `flash_out` / `flash_lse` that the remat
+policies save_attn, save_attn_frac and offload_attn keep.
 """
 
 from __future__ import annotations
 
+import collections
+import contextlib
+import contextvars
 import ctypes
 import math
 
@@ -460,12 +466,111 @@ def rope_transpose(g, cos, sin, interleaved: bool = True):
     return g * cos - rotate_half(g * sin, interleaved)
 
 
+class FlashStash:
+    """The (out, lse) of the flash forwards of one checkpointed DiT layer,
+    kept across its recompute (the JAX names `flash_out` and `flash_lse`,
+    which the remat policies save_attn, save_attn_frac and offload_attn
+    save or offload).
+
+    `contexts()` gives torch.utils.checkpoint's context_fn pair: under the
+    first, each flash forward (K1, K2, K7 with the LSE) launches and its
+    result is kept; under the second, the recompute, each takes its kept
+    result back in call order and launches nothing.  The q-side inputs are
+    still recomputed.  With `offload`, CUDA results are copied to pinned host
+    memory on a side stream and brought back on it when the recompute
+    starts; `policy` names the remat policy in errors."""
+
+    def __init__(self, policy: str, offload: bool = False):
+        self.policy, self.offload = policy, offload
+        self._kept = collections.deque()
+        self._stream = None
+
+    def contexts(self):
+        return _stash_mode(self.record), _stash_mode(self.replay, self._fetch)
+
+    def record(self, launch):
+        out, lse = launch()
+        self._kept.append(tuple(self._to_host(t) if self.offload else t.detach()
+                                for t in (out, lse)))
+        return out, lse
+
+    def replay(self, launch):
+        if not self._kept:
+            raise RuntimeError(f"remat_policy={self.policy!r}: the recompute asked for more "
+                               "flash outputs than its forward kept")
+        kept = self._kept.popleft()
+        if self._stream is not None:
+            torch.cuda.current_stream(kept[0].device).wait_stream(self._stream)
+        return kept
+
+    def _side_stream(self, device):
+        if self._stream is None:
+            self._stream = torch.cuda.Stream(device)
+        return self._stream
+
+    def _to_host(self, t):
+        """A pinned host copy of a CUDA tensor, made on the side stream (CPU
+        tensors are host memory already)."""
+        if t.device.type != "cuda":
+            return t.detach()
+        try:
+            host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+        except RuntimeError as err:
+            raise RuntimeError(f"remat_policy={self.policy!r}: could not allocate "
+                               f"{t.numel() * t.element_size()} bytes of pinned host memory "
+                               "for a flash output") from err
+        side = self._side_stream(t.device)
+        side.wait_stream(torch.cuda.current_stream(t.device))
+        with torch.cuda.stream(side):
+            host.copy_(t, non_blocking=True)
+        t.record_stream(side)
+        return host
+
+    def _fetch(self):
+        """Start copying the offloaded outputs back to the device on the side
+        stream, as the recompute begins; `replay` waits for them."""
+        if not (self.offload and self._kept and self._stream is not None):
+            return
+        side = self._stream
+        device = side.device
+        with torch.cuda.stream(side):
+            fetched = [tuple(t.to(device, non_blocking=True) for t in kept)
+                       for kept in self._kept]
+        for kept in fetched:
+            for t in kept:
+                t.record_stream(torch.cuda.current_stream(device))
+        self._kept = collections.deque(fetched)
+
+
+# the flash forwards' hook under a checkpointed layer: FlashStash.record or
+# .replay while one of its contexts is active, else None
+_STASH = contextvars.ContextVar("flash_stash", default=None)
+
+
+@contextlib.contextmanager
+def _stash_mode(fn, on_enter=None):
+    if on_enter is not None:
+        on_enter()
+    token = _STASH.set(fn)
+    try:
+        yield
+    finally:
+        _STASH.reset(token)
+
+
+def stashed_flash(launch):
+    """(out, lse) of `launch()`, through the active FlashStash if any."""
+    fn = _STASH.get()
+    return launch() if fn is None else fn(launch)
+
+
 class _FlashAttention(torch.autograd.Function):
     """Flash attention with an optional rotary on q and k (JAX
     _flash_attention_rope_bnsd / _flash_attention_bnsd): the forward ropes k
     (K10) and q inside the flash kernel; the backward ropes q (K10), runs
     the dq and dk/dv kernels and pulls dq and dk back through the transposed
-    rotary.  The tables get no gradient."""
+    rotary.  The tables get no gradient.  Under a remat policy that keeps
+    the flash outputs, the recompute takes (out, lse) from the FlashStash."""
 
     @staticmethod
     def forward(ctx, q, k, v, cos, sin, scale, interleaved):
@@ -473,7 +578,8 @@ class _FlashAttention(torch.autograd.Function):
         if cos is not None:
             rope = (cos, sin)
             k = fused_norms.apply_rotary_fused(k, cos, sin, interleaved=interleaved)
-        out, lse = flash_attention(q, k, v, scale=scale, rope=rope, rope_interleaved=interleaved)
+        out, lse = stashed_flash(lambda: flash_attention(q, k, v, scale=scale, rope=rope,
+                                                         rope_interleaved=interleaved))
         ctx.save_for_backward(q, k, v, out, lse, cos, sin)
         ctx.scale, ctx.interleaved = scale, interleaved
         return out

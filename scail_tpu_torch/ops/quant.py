@@ -188,13 +188,21 @@ class QuantizedLinear(nn.Module):
 
 def quantize_dense_params(layer: nn.Linear, bits: int = 8) -> QuantizedLinear:
     """An nn.Linear -> its QuantizedLinear (codes and scales from the f32
-    weight; the bias kept as it is)."""
+    weight; the bias and any LoRA factors kept as they are)."""
     quantize = {8: quantize_int8, 4: quantize_int4}.get(bits)
     if quantize is None:
         raise ValueError(f"bits must be 8 or 4, got {bits}")
     codes, scale = quantize(layer.weight.detach())
     bias = layer.bias.detach().clone() if layer.bias is not None else None
-    return QuantizedLinear(codes, scale.to(layer.weight.dtype), bias, bits)
+    qlayer = QuantizedLinear(codes, scale.to(layer.weight.dtype), bias, bits)
+    # LoRA factors stay as they are: the delta runs beside the quantized base
+    for name, p in layer.named_parameters(recurse=False):
+        if name.startswith("lora_"):
+            qlayer.register_parameter(name, p)
+    for name, b in layer.named_buffers(recurse=False):
+        if name.startswith("lora_"):
+            qlayer.register_buffer(name, b)
+    return qlayer
 
 
 def dense_quantized(layer: QuantizedLinear, x, impl: str = "auto"):

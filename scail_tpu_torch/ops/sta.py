@@ -37,7 +37,8 @@ import torch
 from scail_tpu_torch.ops import cuda_build
 from scail_tpu_torch.ops.attention import (LAUNCHES, _bwd_operands, _check_impl, _check_operand,
                                            _stream, _strides, attention,
-                                           flash_attention_bwd_plain, flash_attention_plain)
+                                           flash_attention_bwd_plain, flash_attention_plain,
+                                           stashed_flash)
 
 _LOG2E = math.log2(math.e)
 
@@ -519,12 +520,14 @@ def sta_windowed_bwd(q, k, v, out, lse, do, tables: StaTables, *, ts: int, ts_q:
 
 class _StaWindowed(torch.autograd.Function):
     """The windowed call with its gradient (JAX _sta_windowed and its custom
-    VJP): K7 with the LSE forward, K8 backward."""
+    VJP): K7 with the LSE forward, K8 backward.  Under a remat policy that
+    keeps the flash outputs, the recompute takes (out, lse) from the
+    FlashStash (ops/attention.py)."""
 
     @staticmethod
     def forward(ctx, q, k, v, tables, ts, ts_q, scale):
-        out, lse = sta_windowed_fwd(q, k, v, tables.table, ts=ts, ts_q=ts_q, scale=scale,
-                                    with_lse=True)
+        out, lse = stashed_flash(lambda: sta_windowed_fwd(q, k, v, tables.table, ts=ts,
+                                                          ts_q=ts_q, scale=scale, with_lse=True))
         ctx.save_for_backward(q, k, v, out, lse)
         ctx.tables, ctx.ts, ctx.ts_q, ctx.scale = tables, ts, ts_q, scale
         return out

@@ -31,14 +31,20 @@ class EmaAdamState:
 
 
 class FusedEmaAdam:
-    """AdamW (decoupled weight decay) with bias correction, the JAX default
-    (adam_w_mode, bias_correction); its L2 mode has no caller and is not
-    ported."""
+    """Adam with bias correction and the EMA shadow.  adam_w_mode=True (the
+    Trainer's) decays the weights apart from the moments (AdamW);
+    adam_w_mode=False is the L2 mode, which adds weight_decay * param to the
+    gradient before the moments (the reference kernel's ADAM_MODE 1).  The
+    state covers the parameters it is given: the Trainer gives it those that
+    require grad, so frozen parameters get no moments and no shadow (the
+    JAX Trainer's multi_transform with set_to_zero on frozen leaves)."""
 
     def __init__(self, b1: float = 0.9, b2: float = 0.999, eps: float = 1e-8,
-                 weight_decay: float = 0.0, ema_decay: float = 0.9999):
+                 weight_decay: float = 0.0, ema_decay: float = 0.9999,
+                 adam_w_mode: bool = True):
         self.b1, self.b2, self.eps = b1, b2, eps
         self.weight_decay, self.ema_decay = weight_decay, ema_decay
+        self.adam_w_mode = adam_w_mode
 
     @staticmethod
     def init(params: Dict[str, torch.Tensor]) -> EmaAdamState:
@@ -62,11 +68,13 @@ class FusedEmaAdam:
         for n, p in params.items():
             g = grads[n].float()
             pf = p.float()
+            if wd and not self.adam_w_mode:
+                g = g + wd * pf
             m, v, s = state.exp_avg[n], state.exp_avg_sq[n], state.shadow[n]
             m.mul_(self.b1).add_((1 - self.b1) * g)
             v.mul_(self.b2).add_((1 - self.b2) * g * g)
             upd = (m / c1) / (torch.sqrt(v / c2) + self.eps)
-            if wd:
+            if wd and self.adam_w_mode:
                 upd = upd + wd * pf
             new_p = pf - lr * upd
             s.mul_(self.ema_decay).add_((1 - self.ema_decay) * new_p)
@@ -89,6 +97,9 @@ def global_norm(tensors: Dict[str, torch.Tensor]) -> torch.Tensor:
 
 
 def swap_in_ema(params: Dict[str, torch.Tensor], state: EmaAdamState):
-    """(ema_params, params): the shadow in the params' dtypes, beside the
-    live params, for exporting EMA weights."""
-    return {n: state.shadow[n].to(p.dtype) for n, p in params.items()}, params
+    """(ema_params, params): the shadow in the params' dtypes beside the live
+    params, for the EMA double-save.  A parameter the state does not cover
+    (frozen under LoRA) keeps its live value, as the JAX swap_in_ema does
+    for a MaskedNode shadow."""
+    return {n: state.shadow[n].to(p.dtype) if n in state.shadow else p
+            for n, p in params.items()}, params

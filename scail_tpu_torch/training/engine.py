@@ -1,7 +1,13 @@
 """Training engine (counterpart of scail_tpu/training/engine.py): the
 grad-accumulation-aware train loop with NaN skip, clipping by global norm
 chained with fused EMA-Adam under the annealing schedule, JSONL metrics,
-periodic and final checkpoints, and resume from `latest`.
+periodic and final checkpoints (asynchronous, with the EMA double-save), and
+resume from `latest`.
+
+The optimizer covers the parameters that require grad (all of the DiT's in a
+full fine-tune, the LoRA factors under training/lora.py); the checkpoint
+holds every parameter and buffer of the model, so a LoRA run resumes with
+its base.
 
 One process on one device.  The random stream is one torch.Generator on the
 model's device, saved with the checkpoint, so a resumed run draws what the
@@ -19,7 +25,7 @@ from typing import Any, Callable, Dict, Iterator, Optional
 import torch
 
 from scail_tpu_torch.training.checkpoint import CheckpointManager, load_checkpoint, read_latest
-from scail_tpu_torch.training.ema_adam import FusedEmaAdam, clip_by_global_norm_
+from scail_tpu_torch.training.ema_adam import FusedEmaAdam, clip_by_global_norm_, swap_in_ema
 from scail_tpu_torch.training.lr_schedules import annealing_lr
 
 
@@ -40,7 +46,9 @@ class TrainConfig:
     tensorboard: bool = False
     wandb: bool = False
     seed: int = 1234
+    async_save: bool = True  # write checkpoints in a background thread
     keep_last_checkpoints: int = 3
+    keep_every_checkpoints: int = 0
 
 
 def _micro_batch(batch: Dict[str, Any], i: int, accum: int) -> Dict[str, Any]:
@@ -59,8 +67,9 @@ class Trainer:
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, config: TrainConfig,
                  model_config: Optional[Dict] = None):
         if config.tensorboard or config.wandb:
-            raise NotImplementedError("TensorBoard and wandb logging are not ported: metrics "
-                                      "go to <save_dir>/metrics.jsonl")
+            raise NotImplementedError("TensorBoard and wandb logging are not ported (ROADMAP "
+                                      "Queue 1 item 12, the metric writers): metrics go to "
+                                      "<save_dir>/metrics.jsonl")
         self.config = config
         self.model = model
         self.model_config = model_config
@@ -132,6 +141,7 @@ class Trainer:
                 self.save(step)
         if cfg.save_dir:
             self.save(self.step)
+        self.wait_for_save()  # the last write has landed, or its failure raises
         return history
 
     def _log_metrics(self, record: Dict) -> None:
@@ -142,14 +152,20 @@ class Trainer:
 
     # ------------------------------------------------------------------
     def state_dict(self) -> Dict[str, Any]:
-        return {"params": {n: p.detach() for n, p in self.params.items()},
+        """The model's parameters and buffers (trained and frozen), the
+        optimizer state, the step and the random stream, by reference."""
+        return {"params": self.model.state_dict(),
                 "opt_state": self.opt_state.state_dict(), "step": self.step,
                 "skipped": self.skipped, "generator": self.generator.get_state()}
 
+    def ema_params(self) -> Dict[str, torch.Tensor]:
+        """The model's state with the EMA shadow in place of each trained
+        parameter (the EMA double-save; frozen ones keep their values)."""
+        return swap_in_ema(self.model.state_dict(), self.opt_state)[0]
+
     def load_state_dict(self, state: Dict[str, Any]) -> None:
         with torch.no_grad():
-            for n, p in self.params.items():
-                p.copy_(state["params"][n])
+            self.model.load_state_dict(state["params"])
             opt = state["opt_state"]
             for field in ("exp_avg", "exp_avg_sq", "shadow"):
                 for n, t in getattr(self.opt_state, field).items():
@@ -159,15 +175,26 @@ class Trainer:
         self.generator.set_state(state["generator"])
 
     def save(self, iteration: int) -> str:
+        cfg = self.config
         if self._ckpt is None:
-            self._ckpt = CheckpointManager(self.config.save_dir,
-                                           keep_last=self.config.keep_last_checkpoints)
-        path = self._ckpt.save(iteration, self.state_dict(), model_config=self.model_config)
-        print(f"saved checkpoint iter {iteration} -> {path}", flush=True)
+            self._ckpt = CheckpointManager(cfg.save_dir, keep_last=cfg.keep_last_checkpoints,
+                                           keep_every=cfg.keep_every_checkpoints,
+                                           async_save=cfg.async_save)
+        path = self._ckpt.save(iteration, self.state_dict(), model_config=self.model_config,
+                               ema_params=self.ema_params())
+        print(f"saved checkpoint iter {iteration} -> {path}"
+              + (" (async)" if cfg.async_save else ""), flush=True)
         return path
+
+    def wait_for_save(self) -> None:
+        """Block until the checkpoint write in flight (if any) has landed;
+        raise if a write failed."""
+        if self._ckpt is not None:
+            self._ckpt.wait()
 
     def resume(self, save_dir: Optional[str] = None) -> int:
         """Continue from `latest` in save_dir (default: the config's)."""
+        self.wait_for_save()
         d = save_dir or self.config.save_dir
         if d is None or read_latest(d) is None:
             print("no checkpoint to resume from; starting fresh", flush=True)

@@ -99,19 +99,20 @@ def test_unknown_attn_impl_raises(impl):
 
 
 def test_moe_and_remat_training_raise():
-    """MoE and the remat policies that keep the flash outputs are not ported;
-    the default remat policy trains (tests/test_torch_training.py)."""
+    """MoE is not ported and raises; every remat policy of the JAX package
+    builds (tests/test_torch_remat.py trains them), and an unknown one
+    raises."""
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         DiT(DiTConfig(**TINY, num_experts=2))
-    for policy in ("save_attn", "save_attn_frac", "offload_attn"):
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            DiT(DiTConfig(**TINY, remat=True, remat_policy=policy))
-    DiT(DiTConfig(**TINY, remat=False, remat_policy="save_attn"))  # ignored without remat
+    for policy in ("default", "save_attn", "save_attn_frac", "offload_attn"):
+        DiT(DiTConfig(**TINY, remat=True, remat_policy=policy))
+    with pytest.raises(ValueError, match="unknown remat_policy"):
+        DiT(DiTConfig(**TINY, remat=True, remat_policy="save_everything"))
+    DiT(DiTConfig(**TINY, remat=False, remat_policy="save_everything"))  # ignored without remat
 
 
 @pytest.mark.parametrize("field, item, heading", [
     (dict(num_experts=2), "ROADMAP Queue 1, item 15 (ops/moe.py)", "**Item 15 "),
-    (dict(remat=True, remat_policy="save_attn"), "ROADMAP Queue 1 item 12a", "**Item 12a "),
 ])
 def test_unported_features_cite_roadmap_items_that_hold_them(field, item, heading):
     """The errors name the ROADMAP item that holds the work, and that item is
@@ -122,4 +123,4 @@ def test_unported_features_cite_roadmap_items_that_hold_them(field, item, headin
     roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
     queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
     section = re.split(r"\n\d+\. \*\*Item", queue1.split(heading, 1)[1])[0]
-    assert ("ops/moe.py" if "moe" in item else "remat") in section
+    assert "ops/moe.py" in section

@@ -413,7 +413,8 @@ def test_port_never_imports_jax():
         "assert 'scail_tpu_torch.cli.sample_video' in names, names\n"
         "assert 'scail_tpu_torch.cli.train' in names, names\n"
         "for m in ('ops.quant', 'ops.fused_norms', 'cli.bench_14b_quant', "
-        "'cli.bench_14b_e2e', 'convert.torch_ckpt', 'convert.wan_vae_ckpt'):\n"
+        "'cli.bench_14b_e2e', 'convert.torch_ckpt', 'convert.wan_vae_ckpt', "
+        "'training.lora'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -434,7 +435,8 @@ def test_port_sources_never_import_jax_or_the_jax_package():
         files += [os.path.join(d, n) for n in names if n.endswith(".py")]
     assert len(files) >= 30
     for new in ("ops/quant.py", "ops/fused_norms.py", "cli/bench_14b_quant.py",
-                "cli/bench_14b_e2e.py", "convert/torch_ckpt.py", "convert/wan_vae_ckpt.py"):
+                "cli/bench_14b_e2e.py", "convert/torch_ckpt.py", "convert/wan_vae_ckpt.py",
+                "training/lora.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}

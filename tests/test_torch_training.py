@@ -10,13 +10,19 @@
   ema_adam_state_from_jax (1e-6 relative).
 * The weight bridge joins the save_attn_frac split layout (params and
   EMA-Adam state) into the stacked one.
-* Trainer: NaN skip, gradient accumulation, exact save/resume, checkpoint GC.
+* EMA-Adam's L2 mode against fused_ema_adam(adam_w_mode=False) (1e-6), and
+  the EMA double-save (<iter>/ema) against the JAX swap_in_ema of a LoRA
+  run's masked state, through the bridge (1e-6).
+* Trainer: NaN skip, gradient accumulation, exact save/resume, checkpoint GC;
+  asynchronous saves move `latest` only after the write lands and raise a
+  failed write; retention by keep_every.
 * The train CLI on the CPU at toy size: 2 iterations, a checkpoint, a resume.
 * The host helpers the port copied from the JAX package agree with it.
 """
 
 import importlib
 import os
+import threading
 
 import jax
 import jax.numpy as jnp
@@ -208,6 +214,61 @@ def test_clip_and_ema_adam_match_the_optax_chain():
                                        atol=1e-6 * np.abs(w).max(), err_msg=n)
 
 
+def test_ema_adam_l2_mode_matches_the_jax_optimizer():
+    """adam_w_mode=False adds weight_decay * param to the gradient before the
+    moments; three steps from a JAX state carried across (1e-6 relative)."""
+    params = init_dit_params(jax.random.PRNGKey(0), JaxDiTConfig(**TINY))
+    tx = fused_ema_adam(1e-3, weight_decay=0.05, ema_decay=0.99, adam_w_mode=False)
+    rng = np.random.default_rng(1)
+    grads = [jax.tree.map(lambda p: jnp.asarray(
+        rng.standard_normal(p.shape).astype(np.float32) * s), params) for s in (0.01, 1.0, 0.1)]
+    state = tx.init(params)
+    opt = FusedEmaAdam(weight_decay=0.05, ema_decay=0.99, adam_w_mode=False)
+    pparams = dit_state_dict_from_jax(params)
+    pstate = ema_adam_state_from_jax(state)
+    for g in grads:
+        updates, state = tx.update(g, state, params)
+        params = optax.apply_updates(params, updates)
+        opt.step(pparams, dit_state_dict_from_jax(g), pstate, 1e-3)
+    want = ema_adam_state_from_jax(state)
+    aw = FusedEmaAdam(weight_decay=0.05, ema_decay=0.99)  # AdamW differs from the L2 mode
+    awp = dit_state_dict_from_jax(init_dit_params(jax.random.PRNGKey(0), JaxDiTConfig(**TINY)))
+    aws = aw.init(awp)
+    for g in grads:
+        aw.step(awp, dit_state_dict_from_jax(g), aws, 1e-3)
+    assert pstate.count == want.count == 3
+    assert not torch.allclose(awp["layers.0.qkv.weight"], pparams["layers.0.qkv.weight"],
+                              rtol=1e-5, atol=0)
+    for got_d, want_d in ((pparams, dit_state_dict_from_jax(params)),
+                          (pstate.exp_avg, want.exp_avg), (pstate.exp_avg_sq, want.exp_avg_sq),
+                          (pstate.shadow, want.shadow)):
+        for n in want_d:
+            w = want_d[n].numpy()
+            np.testing.assert_allclose(got_d[n].numpy(), w, rtol=1e-6,
+                                       atol=1e-6 * np.abs(w).max(), err_msg=n)
+
+
+def test_ema_double_save_equals_jax_swap_in_ema(tmp_path):
+    """Two LoRA steps in each Trainer (tests/test_torch_lora.py); the port's
+    <iter>/ema equals the JAX swap_in_ema of the masked state through the
+    bridge: the shadow for the factors, the live base elsewhere (1e-6)."""
+    from scail_tpu_torch.training.checkpoint import load_checkpoint
+    from test_torch_lora import jax_two_lora_steps, port_two_lora_steps
+
+    jtrainer, _, start = jax_two_lora_steps()
+    trainer, _ = port_two_lora_steps(start, save_dir=str(tmp_path))
+    ema, it = load_checkpoint(str(tmp_path), ema=True)
+    assert it == 2 and (tmp_path / "2" / "ema").is_dir()
+    want = dit_state_dict_from_jax(jax.tree.map(np.asarray, jax_swap_in_ema(
+        jtrainer.state["params"], jtrainer._ema_state())[0]))
+    assert set(ema["params"]) == set(want)
+    for n, w in want.items():
+        w = w.numpy()
+        np.testing.assert_allclose(ema["params"][n].numpy(), w, rtol=1e-6,
+                                   atol=1e-6 * np.abs(w).max(), err_msg=n)
+    assert set(ema_adam_state_from_jax(jtrainer._ema_state()).shadow) == set(trainer.params)
+
+
 def _split_case():
     """A 3-layer DiT's params and a random EMA-Adam state, stacked and in the
     save_attn_frac split layout (2 head layers, 1 tail layer)."""
@@ -307,6 +368,7 @@ def test_save_then_resume_restores_state_and_continues_exactly(tmp_path):
     for batch in data[:3]:
         part.train_step(batch)
     part.save(3)
+    part.wait_for_save()  # saves are asynchronous
     assert read_latest(str(tmp_path)) == "3" and (tmp_path / "3" / "state").is_dir()
     resumed, m_res = _toy_trainer(tmp_path, seed=7, train_iters=5)
     assert resumed.resume() == 3 and resumed.step == 3
@@ -324,10 +386,62 @@ def test_checkpoint_gc_keeps_the_newest(tmp_path):
     mgr = CheckpointManager(str(tmp_path), keep_last=2)
     for it in range(1, 6):
         mgr.save(it, {"w": torch.full((2,), float(it))}, model_config={"a": 1})
+    mgr.wait()  # saves are asynchronous
     kept = sorted(int(n) for n in os.listdir(tmp_path) if n.isdigit())
     assert kept == [4, 5] and read_latest(str(tmp_path)) == "5"
     assert (tmp_path / "model_config.json").is_file()
     assert not any(n.endswith(".tmp") for n in os.listdir(tmp_path / "5"))
+
+
+def _held_writes(monkeypatch, fail_at=()):
+    """Make checkpoint._write_tree wait for an Event before writing, and
+    raise for the iterations in `fail_at`."""
+    from scail_tpu_torch.training import checkpoint as ckpt
+
+    gate = threading.Event()
+    real = ckpt._write_tree
+
+    def write(path, tree):
+        assert gate.wait(30), "the test never released the writer"
+        if int(os.path.basename(os.path.dirname(path))) in fail_at:
+            raise OSError("disk full")
+        real(path, tree)
+
+    monkeypatch.setattr(ckpt, "_write_tree", write)
+    return gate
+
+
+def test_async_save_moves_latest_only_after_the_write_lands(tmp_path, monkeypatch):
+    gate = _held_writes(monkeypatch, fail_at=(3, 4))
+    mgr = CheckpointManager(str(tmp_path), keep_last=5)
+    state = {"w": torch.ones(3)}
+    gate.set()
+    mgr.save(1, state, ema_params={"w": torch.zeros(3)})
+    mgr.wait()
+    assert read_latest(str(tmp_path)) == "1" and (tmp_path / "1" / "ema").is_dir()
+    gate.clear()
+    mgr.save(2, state)
+    state["w"].add_(1)  # the save copied the tree: the write must not see this
+    assert read_latest(str(tmp_path)) == "1" and not (tmp_path / "2" / "state").exists()
+    gate.set()
+    mgr.wait()
+    assert read_latest(str(tmp_path)) == "2"
+    assert torch.equal(torch.load(tmp_path / "2" / "state" / "state.pt")["w"], torch.ones(3))
+    mgr.save(3, state)  # this write fails in the writer thread
+    with pytest.raises(RuntimeError, match="iteration 3"):
+        mgr.wait()
+    mgr.save(4, state)  # and this one: the next save raises it
+    with pytest.raises(RuntimeError, match="iteration 4"):
+        mgr.save(5, state)
+    assert read_latest(str(tmp_path)) == "2"
+
+
+def test_checkpoint_retention_keeps_every_kth_and_the_newest(tmp_path):
+    mgr = CheckpointManager(str(tmp_path), keep_last=1, keep_every=2, async_save=False)
+    for it in range(1, 8):
+        mgr.save(it, {"w": torch.full((2,), float(it))})
+    assert sorted(int(n) for n in os.listdir(tmp_path) if n.isdigit()) == [2, 4, 6, 7]
+    assert read_latest(str(tmp_path)) == "7"
 
 
 def test_first_frame_noise_draws_log_normal_sigmas_from_the_generator():
@@ -428,8 +542,8 @@ def test_train_cli_trains_saves_and_resumes_on_cpu(tmp_path, monkeypatch):
     assert (save / "latest").read_text() == "3"
 
 
-@pytest.mark.parametrize("flag", [["--lora-rank", "2"], ["--mesh-seq", "2"],
-                                  ["--distributed"], ["--shard-activations"]])
+@pytest.mark.parametrize("flag", [["--mesh-seq", "2"], ["--distributed"],
+                                  ["--shard-activations"]])
 def test_train_cli_raises_for_unported_flags(flag):
     from scail_tpu_torch.cli import train
 
