@@ -93,6 +93,31 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  GB/s.  Then the train CLI with --load takes one full-depth
                  step from the file's weights in f32 (exact launches, a
                  finite loss).  The files are deleted at the end.
+  10. parallel -- scail_tpu_torch/parallel/ on the card, after nvidia-smi's
+                 compute mode is read (an exclusive mode raises).  (a) One
+                 rank under NCCL at world 1: the mesh's groups are NCCL's, a
+                 Ulysses and a ring DiT forward at 2 layers and full width
+                 (a trivial mesh: the DiT issues no collective), and each
+                 collective kind through NCCL, value-checked.  (b) Two ranks
+                 sharing the one card over gloo (NCCL puts no two ranks on
+                 one device; this harness stages gloo's point-to-point
+                 transfers through host memory, `_stage_p2p_through_host`),
+                 1.3B weights from a seed on both: the Ulysses forward at
+                 seq 2, 30 layers, CFG batch 2, 48,832 tokens (per rank
+                 exactly K2 30, K3 30, K10 60, K9 61, all-to-all 120); at 4
+                 layers the ring at seq 2 (K2 8, p2p 4), TP at model 2
+                 (all-reduce 32), STA under Ulysses and under TP; each
+                 against the one-process kernel path on rank 0, relative L2
+                 <= 3e-2.  The ring and Ulysses attention alone at (1,
+                 48,832, 12, 128), forward and backward (ring: K2 2, K5 2 + 2,
+                 p2p 3), against one-process K2 + K5.  Then `train
+                 --distributed --mesh-model 2`, 2
+                 steps at full width and PARALLEL_TRAIN_LAYERS layers (exact
+                 launches; step 1's loss within 3e-2 of the one-process step
+                 at the same depth and seed), and vae_decode_cp of 21
+                 latent frames at 512x896 against the streamed decode.
+                 Seconds, bytes sent and peak GB of each run per rank; each
+                 rank under PARALLEL_RANK_PEAK_GB.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -103,8 +128,8 @@ holds both against their plain versions at the main-path shapes).
 The line before the last is {"kernels": [...]}: per kernel its launches on the
 main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
 train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
-phases 7, 7b and 8 and the --load request of phase 9, each counted from 0,
-and their sum), its largest
+phases 7, 7b and 8, the --load request of phase 9 and the two ranks of phase
+10 (their runs summed), each counted from 0, and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
 larger of bytes moved over 3.35 TB/s and
@@ -2472,6 +2497,534 @@ def phase_load(ex81):
                         train_s=train_s, phase_s=phase_s)
 
 
+# --------------------------------------------------------------------------
+# Phase 10: parallelism over torch.distributed (scail_tpu_torch/parallel/)
+# --------------------------------------------------------------------------
+# launches per DiT forward under a mesh, per rank, by depth L: q and k roped by
+# K10 before the exchange, no K1 (off on a non-trivial mesh, as in JAX)
+def _mesh_dit_launches(L, attn):
+    base = {"dual_cross_attention": L, "adaln_layer_norm": 2 * L + 1, "rotary": 2 * L}
+    if attn == "sta":  # the video and pose windowed calls (K7), the ref rows (K2)
+        return dict(base, sta_attention_fwd=2 * L, flash_attention=L)
+    return dict(base, flash_attention=2 * L if attn == "ring" else L)
+
+
+# depth of the two-rank train CLI step (full width): both ranks' state and
+# activations share the one card
+PARALLEL_TRAIN_LAYERS = 8
+# a rank of the two that share the card must stay under this (GB)
+PARALLEL_RANK_PEAK_GB = 38.0
+PARALLEL_TIMEOUT_S = 600
+
+
+def _check_compute_mode():
+    """Two processes on one card need its compute mode to allow them."""
+    smi = subprocess.run(["nvidia-smi", "--query-gpu=compute_mode", "--format=csv,noheader"],
+                         capture_output=True, text=True, timeout=60)
+    mode = smi.stdout.strip().splitlines()[0] if smi.stdout.strip() else "unknown"
+    if smi.returncode != 0 or "exclusive" in mode.lower():
+        raise RuntimeError(f"compute mode {mode!r}: two ranks cannot share the card "
+                           f"(nvidia-smi: {smi.stderr.strip()})")
+    return mode
+
+
+def _stage_p2p_through_host():
+    """Two ranks on one card run over gloo, whose point-to-point send and
+    recv take host memory only: a CUDA tensor crashes the process (gloo
+    tcp/pair.cc writev, 'Bad address'; the all-to-all, all-reduce,
+    all-gather and reduce-scatter carry CUDA tensors, bf16 too).  This
+    harness wraps torch.distributed.batch_isend_irecv in its rank processes
+    so CUDA tensors travel through host copies; the library's calls stay
+    as they are."""
+    import torch
+    import torch.distributed as dist
+
+    real = dist.batch_isend_irecv
+
+    class Staged:
+        def __init__(self, works, copies):
+            self.works, self.copies, self.done = works, copies, False
+
+        def wait(self):
+            if not self.done:
+                for w in self.works:
+                    w.wait()
+                for dst, src in self.copies:
+                    dst.copy_(src)
+                self.done = True
+            return True
+
+    def staged(ops):
+        new_ops, copies = [], []
+        for op in ops:
+            t = op.tensor
+            if t.is_cuda:
+                if op.op is dist.isend:
+                    host = t.detach().cpu()
+                else:
+                    host = torch.empty(t.shape, dtype=t.dtype)
+                    copies.append((t, host))
+                op = dist.P2POp(op.op, host, op.peer, op.group, op.tag)
+            new_ops.append(op)
+        shared = Staged(real(new_ops), copies)
+        return [shared] * len(ops)
+
+    dist.batch_isend_irecv = staged
+
+
+def _rank_dit(dit, inp, mesh, label, want):
+    """One forward under `mesh` on this rank: exact launches and collectives
+    counted from 0, seconds, bytes sent, peak GB."""
+    import torch
+
+    from scail_tpu_torch import parallel
+
+    x, t, ctx = inp["x"], inp["timesteps"], inp["context"]
+    kw = {k: v for k, v in inp.items() if k not in ("x", "timesteps", "context")}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    parallel.reset_collective_counts()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = dit(x, t, ctx, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+           "collectives": dict(parallel.COLLECTIVES),
+           "bytes_sent": sum(parallel.COLLECTIVE_BYTES.values()),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    kernels, colls = want
+    _exact(rec["launches"], kernels, label)
+    for kind, n in colls.items():
+        if rec["collectives"][kind] != n:
+            fail(f"{label}: expected {n} {kind} calls, got {rec['collectives']}")
+    if not torch.isfinite(out).all():
+        fail(f"{label}: output not finite")
+    return out, rec
+
+
+def _rel_l2(got, want):
+    return ((got.float() - want.float()).norm() / want.float().norm()).item()
+
+
+def _rank_attention(name, fn, mesh, full, want):
+    """fn(q, k, v, mesh) on this rank's seq rows of the main path's (1, 48,832,
+    12, 128) q, k, v, its backward from dO: exact launches and collectives,
+    then (out, dq, dk, dv) gathered over the rows for the comparison."""
+    import torch
+
+    from scail_tpu_torch import parallel
+    from scail_tpu_torch.parallel import comm
+
+    q, k, v, do = (comm.local_slice(t, mesh, "seq", 1).clone() for t in full)
+    for t in (q, k, v):
+        t.requires_grad_(True)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    parallel.reset_collective_counts()
+    t0 = time.perf_counter()
+    out = fn(q, k, v, mesh)
+    out.backward(do)
+    torch.cuda.synchronize()
+    rec = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+           "collectives": dict(parallel.COLLECTIVES),
+           "bytes_sent": sum(parallel.COLLECTIVE_BYTES.values()),
+           "peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    kernels, colls = want
+    _exact(rec["launches"], kernels, name)
+    for kind, n in colls.items():
+        if rec["collectives"][kind] != n:
+            fail(f"{name}: expected {n} {kind} calls, got {rec['collectives']}")
+    got = [comm.all_gather(t.detach(), mesh, "seq", 1) for t in (out, q.grad, k.grad, v.grad)]
+    return got, rec
+
+
+def _parallel_rank_main():
+    """A rank of the two-rank run (phase 10b): gloo on the one card."""
+    import dataclasses
+    import gc
+
+    import torch
+    import torch.distributed as dist
+
+    from scail_tpu_torch.models import wan_vae
+    from scail_tpu_torch.parallel import MeshSpec, make_mesh
+    from scail_tpu_torch.parallel.distributed import initialize_distributed
+    from scail_tpu_torch.parallel.sharding import dit_param_rules, shard_module_
+
+    initialize_distributed(backend="gloo", timeout_s=PARALLEL_TIMEOUT_S)
+    rank = dist.get_rank()
+    _stage_p2p_through_host()
+    global log
+
+    def log(msg, _log=log):  # noqa: F811 -- prefix this rank's lines
+        _log(f"rank {rank}: {msg}")
+
+    seq = make_mesh(MeshSpec(1, 2, 1))
+    model = make_mesh(MeshSpec(1, 1, 2))
+    rec = {"runs": {}}
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(2), 21, 64, 112)
+
+    def record(name, out, r, ref):
+        r["rel_l2"] = None if ref is None else _rel_l2(out, ref)
+        rec["runs"][name] = r
+        log(f"{name}: {r['seconds']:.2f} s, {r['bytes_sent'] / 1e9:.3f} GB sent, peak "
+            f"{r['peak_gb']:.2f} GB, launches {r['launches']}, collectives {r['collectives']}, "
+            f"relative L2 to the one-process kernel path {r['rel_l2']}")
+        if ref is not None and not r["rel_l2"] <= DIT_REL_TOL:
+            fail(f"{name}: relative L2 {r['rel_l2']:.3e} from the one-process path "
+                 f"(tol {DIT_REL_TOL})")
+
+    def reference(dit, cfg):
+        """The one-process kernel path on rank 0 (rank 1 waits)."""
+        out = None
+        if rank == 0:
+            kept = dit.config
+            dit.config = cfg
+            x, t, ctx = inp["x"], inp["timesteps"], inp["context"]
+            kw = {k: v for k, v in inp.items() if k not in ("x", "timesteps", "context")}
+            with torch.inference_mode():
+                out = dit(x, t, ctx, **kw)
+            dit.config = kept
+        dist.barrier()
+        return out
+
+    # Ulysses at full depth
+    dit = _build_dit(attn_impl="ulysses")
+    out, r = _rank_dit(dit, inp, seq, "Ulysses seq 2, 30 layers",
+                       (_mesh_dit_launches(30, "ulysses"), {"all_to_all": 120}))
+    record("ulysses_30", out, r, reference(dit, dit.config))
+    del dit, out
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the ring and Ulysses attention forward and backward at the main path's
+    # shape (batch 1, as in training): K2 per ring step, K5 per chunk
+    from scail_tpu_torch.ops import attention as A
+    from scail_tpu_torch.parallel.ring import ring_attention
+    from scail_tpu_torch.parallel.ulysses import ulysses_attention
+
+    gen = torch.Generator(device="cuda").manual_seed(8)
+    full = [torch.randn((1, 48832, 12, 128), generator=gen, device="cuda").to(torch.bfloat16)
+            for _ in range(4)]
+    want_ref = None
+    if rank == 0:
+        q, k, v = (t.clone().requires_grad_(True) for t in full[:3])
+        o = A.attention(q, k, v)
+        o.backward(full[3])
+        want_ref = [o.detach(), q.grad, k.grad, v.grad]
+        del q, k, v, o
+    dist.barrier()
+    bwd = {"flash_attention_bwd_dq": 2, "flash_attention_bwd_dkv": 2}
+    for name, fn, want in (
+            ("ring_attention_bwd", ring_attention,
+             (dict(bwd, flash_attention=2), {"p2p": 3})),
+            ("ulysses_attention_bwd", ulysses_attention,
+             ({"flash_attention": 1, "flash_attention_bwd_dq": 1, "flash_attention_bwd_dkv": 1},
+              {"all_to_all": 8}))):
+        got, r = _rank_attention(name, fn, seq, full, want)
+        r["rel_l2"] = None if want_ref is None else max(
+            _rel_l2(g, w) for g, w in zip(got, want_ref))
+        rec["runs"][name] = r
+        log(f"{name}: {r['seconds']:.2f} s, {r['bytes_sent'] / 1e9:.3f} GB sent, peak "
+            f"{r['peak_gb']:.2f} GB, launches {r['launches']}, collectives {r['collectives']}, "
+            f"largest relative L2 of out, dq, dk, dv to the one-process K2 + K5 {r['rel_l2']}")
+        if want_ref is not None and not r["rel_l2"] <= DIT_REL_TOL:
+            fail(f"{name}: relative L2 {r['rel_l2']:.3e} (tol {DIT_REL_TOL})")
+        del got
+    del full, want_ref
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # 4 layers: ring, TP, STA under Ulysses, STA under TP
+    dit = _build_dit(num_layers=4)
+    cfg = dit.config
+    tp = _build_dit(num_layers=4)
+    shard_module_(tp, dit_param_rules(), model)
+    sta = dataclasses.replace(cfg, attn_impl="sta")
+    runs = (("ring_4", dit, dataclasses.replace(cfg, attn_impl="ring"), seq,
+             (_mesh_dit_launches(4, "ring"), {"p2p": 4})),
+            ("tp_4", tp, cfg, model, (_mesh_dit_launches(4, "auto"), {"all_reduce": 32})),
+            ("sta_ulysses_4", dit, sta, seq, (_mesh_dit_launches(4, "sta"), {"all_to_all": 16})),
+            ("sta_tp_4", tp, sta, model, (_mesh_dit_launches(4, "sta"), {"all_reduce": 32})))
+    for name, net, run_cfg, mesh, want in runs:
+        net.config = run_cfg
+        out, r = _rank_dit(net, inp, mesh, name, want)
+        record(name, out, r, reference(dit, run_cfg))
+        del out
+    del dit, tp, inp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the train CLI, tensor parallel over the two ranks
+    rec["train"] = _parallel_train_rank()
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # the context-parallel VAE decode of 21 latent frames at 512x896
+    vae = wan_vae.WanVAE()
+    vae.init(torch.Generator(device="cuda").manual_seed(6), device="cuda")
+    z = torch.randn((1, 21, 16, 64, 112), generator=torch.Generator(device="cuda").manual_seed(7),
+                    device="cuda")
+    from scail_tpu_torch import parallel
+
+    parallel.reset_collective_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        frames = wan_vae.vae_decode_cp(vae.model, vae.config, z, seq)
+    torch.cuda.synchronize()
+    r = {"seconds": time.perf_counter() - t0, "collectives": dict(parallel.COLLECTIVES),
+         "bytes_sent": sum(parallel.COLLECTIVE_BYTES.values()),
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "launches": {}}
+    ref = None
+    if rank == 0:
+        t0 = time.perf_counter()
+        with torch.inference_mode():
+            ref = wan_vae.vae_decode(vae.model, vae.config, z, streamed=True)
+        torch.cuda.synchronize()
+        r["streamed_seconds"] = time.perf_counter() - t0
+    dist.barrier()
+    if tuple(frames.shape) != (1, 81, 3, 512, 896) or not torch.isfinite(frames).all():
+        fail(f"vae_decode_cp: bad frames {tuple(frames.shape)}")
+    record("vae_decode_cp", frames, r, ref)
+    del vae, z, frames, ref
+
+    with open(os.path.join(WORK, f"parallel_rank{rank}.json"), "w") as f:
+        json.dump(rec, f)
+    dist.barrier()
+    dist.destroy_process_group()
+
+
+def _parallel_train_yaml():
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
+        cut = yaml.safe_load(f)
+    cut["model"]["network_config"]["params"]["num_layers"] = PARALLEL_TRAIN_LAYERS
+    path = os.path.join(WORK, f"scail_1p3b_{PARALLEL_TRAIN_LAYERS}layers.yaml")
+    with open(path, "w") as f:
+        yaml.safe_dump(cut, f)
+    return path
+
+
+def _parallel_train_argv():
+    return _train_argv(_parallel_train_yaml(), os.path.join(WORK, "train_data"))
+
+
+def _parallel_train_rank():
+    """2 steps of `train --distributed --mesh-model 2` on this rank: exact
+    launches, the step seconds, the peak."""
+    import torch
+
+    from scail_tpu_torch import parallel
+    from scail_tpu_torch.cli import train
+
+    L = PARALLEL_TRAIN_LAYERS
+    argv = _parallel_train_argv() + ["--distributed", "--mesh-model", "2", "--train-iters", "2"]
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    parallel.reset_collective_counts()
+    t0 = time.perf_counter()
+    trainer = train.main(argv)
+    torch.cuda.synchronize()
+    r = {"seconds": time.perf_counter() - t0, "launches": launch_counts(),
+         "collectives": dict(parallel.COLLECTIVES),
+         "bytes_sent": sum(parallel.COLLECTIVE_BYTES.values()),
+         "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+         "losses": [m["loss"] for m in trainer.history],
+         "grad_norms": [m["grad_norm"] for m in trainer.history],
+         "ok": [m["ok"] for m in trainer.history]}
+    # per step, with remat: the forward kernels twice (forward and recompute),
+    # the backward ones once; K10 on q and k in both forwards
+    per_step = {"flash_attention": 2 * L, "dual_cross_attention": 2 * L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "adaln_layer_norm": 4 * L + 1, "rotary": 4 * L}
+    _exact(r["launches"], {k: 2 * v for k, v in per_step.items()},
+           f"train --distributed --mesh-model 2, {L} layers, 2 steps")
+    if trainer.step != 2 or not all(r["ok"]):
+        fail(f"the two-rank train CLI did not take 2 steps: {trainer.history}")
+    log(f"train --mesh-model 2 at {L} layers: {r['seconds']:.1f} s for 2 steps (with engine "
+        f"build), losses {r['losses']}, gradient norms {r['grad_norms']}, peak "
+        f"{r['peak_gb']:.2f} GB, {r['bytes_sent'] / 1e9:.3f} GB sent, collectives {r['collectives']}")
+    del trainer
+    return r
+
+
+def _nccl_world1_main():
+    """Phase 10a: NCCL at world size 1 -- the production backend initialises,
+    the mesh's groups are NCCL's, a Ulysses and a ring DiT forward at 2 layers
+    and full width run under that mesh (a trivial one: the DiT issues no
+    collective), and each collective kind goes through NCCL."""
+    import torch
+    import torch.distributed as dist
+
+    from scail_tpu_torch.parallel import MeshSpec, make_mesh
+
+    torch.cuda.set_device(0)
+    dist.init_process_group("nccl", init_method=f"tcp://localhost:{os.environ['MASTER_PORT']}",
+                            rank=0, world_size=1)
+    mesh = make_mesh(MeshSpec(1, 1, 1))
+    backends = {a: dist.get_backend(mesh.group(a)) for a in ("data", "seq", "model")}
+    if dist.get_backend() != "nccl" or set(backends.values()) != {"nccl"}:
+        fail(f"NCCL world 1: backends {dist.get_backend()} {backends}")
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(2), 21, 64, 112)
+    outs = {}
+    for attn in ("ulysses", "ring"):
+        dit = _build_dit(num_layers=2, attn_impl=attn)
+        out, r = _rank_dit(dit, inp, mesh, f"NCCL world 1, {attn}, 2 layers",
+                           (_mesh_dit_launches(2, "ulysses"), {}))
+        outs[attn] = out
+        log(f"NCCL world 1: {attn} DiT forward, 2 layers: {r['seconds']:.2f} s, launches "
+            f"{r['launches']}")
+        del dit
+    if not torch.equal(outs["ulysses"], outs["ring"]):
+        fail("NCCL world 1: the Ulysses and ring forwards differ on a trivial mesh")
+    # each kind of collective the library issues, through NCCL
+    x = torch.arange(8.0, device="cuda", dtype=torch.bfloat16).reshape(2, 4)
+    ops = {}
+    y = x.clone()
+    dist.all_reduce(y)
+    ops["all_reduce"] = torch.equal(y, x)
+    g = torch.empty_like(x)
+    dist.all_gather_into_tensor(g, x)
+    ops["all_gather"] = torch.equal(g, x)
+    a = torch.empty_like(x)
+    dist.all_to_all_single(a, x)
+    ops["all_to_all"] = torch.equal(a, x)
+    s = torch.empty_like(x)
+    dist.reduce_scatter_tensor(s, x)
+    ops["reduce_scatter"] = torch.equal(s, x)
+    p = torch.empty_like(x)
+    for w in dist.batch_isend_irecv([dist.P2POp(dist.isend, x, 0), dist.P2POp(dist.irecv, p, 0)]):
+        w.wait()
+    ops["p2p"] = torch.equal(p, x)
+    torch.cuda.synchronize()
+    log(f"NCCL world 1: backend {dist.get_backend()}, mesh groups {backends}, collectives "
+        f"{ops}")
+    if not all(ops.values()):
+        fail(f"NCCL world 1: a collective returned a wrong value: {ops}")
+    dist.destroy_process_group()
+
+
+def _free_port():
+    import socket
+
+    with socket.socket() as s:
+        s.bind(("localhost", 0))
+        return s.getsockname()[1]
+
+
+def _run_ranks(entry, world, extra_env=None):
+    """Run chip_smoke.`entry`() in `world` processes on the card; the first
+    failure (or the time limit) stops them all."""
+    port = _free_port()
+    code = f"import sys; sys.path.insert(0, {ROOT!r}); import chip_smoke as c; c.{entry}()"
+    procs = []
+    for rank in range(world):
+        env = dict(os.environ, RANK=str(rank), WORLD_SIZE=str(world), LOCAL_RANK="0",
+                   MASTER_ADDR="localhost", MASTER_PORT=str(port), **(extra_env or {}))
+        procs.append(subprocess.Popen([sys.executable, "-c", code], cwd=ROOT, env=env))
+    t0 = time.perf_counter()
+    try:
+        while any(p.poll() is None for p in procs):
+            if any(p.returncode not in (None, 0) for p in procs):
+                break
+            if time.perf_counter() - t0 > PARALLEL_TIMEOUT_S:
+                break
+            time.sleep(0.5)
+    finally:
+        for p in procs:
+            if p.poll() is None:
+                p.kill()
+                p.wait()
+    codes = [p.returncode for p in procs]
+    if any(codes):
+        fail(f"{entry}: ranks exited with {codes} after {time.perf_counter() - t0:.0f} s")
+
+
+def phase_parallel(ex81):
+    """Phase 10: (a) NCCL at world size 1; (b) two ranks over gloo on the one
+    card -- Ulysses at full depth, ring, TP, STA under Ulysses and under TP at
+    4 layers, each held against the one-process kernel path; the train CLI
+    with --distributed --mesh-model 2 for 2 steps at PARALLEL_TRAIN_LAYERS
+    layers against the one-process run of 2 steps (each step's loss and
+    gradient norm: the second step's loss reads the first update, made
+    through the tensor-parallel backward, the gradient reduce and the
+    sharded clip norm and moments); vae_decode_cp of 21
+    latent frames against the streamed decode.  Returns the ranks' launches
+    (summed) and the phase's record."""
+    import gc
+
+    import torch
+
+    from scail_tpu_torch.cli import train
+
+    t_phase = time.perf_counter()
+    mode = _check_compute_mode()
+    log(f"parallel: compute mode {mode}")
+    gc.collect()
+    torch.cuda.empty_cache()
+    t0 = time.perf_counter()
+    _run_ranks("_nccl_world1_main", 1)
+    nccl_s = time.perf_counter() - t0
+
+    # the one-process train steps at the same depth and seed
+    _data_root(ex81)
+    t0 = time.perf_counter()
+    one = train.main(_parallel_train_argv() + ["--train-iters", "2"])
+    one_losses = [m["loss"] for m in one.history]
+    one_norms = [m["grad_norm"] for m in one.history]
+    log(f"parallel: one-process train at {PARALLEL_TRAIN_LAYERS} layers, 2 steps: losses "
+        f"{one_losses}, gradient norms {one_norms} ({time.perf_counter() - t0:.1f} s with "
+        "engine build)")
+    del one
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    _run_ranks("_parallel_rank_main", 2)
+    ranks_s = time.perf_counter() - t0
+    recs = []
+    for rank in range(2):
+        with open(os.path.join(WORK, f"parallel_rank{rank}.json")) as f:
+            recs.append(json.load(f))
+    for rank, rec in enumerate(recs):
+        for name, r in list(rec["runs"].items()) + [("train", rec["train"])]:
+            if r["peak_gb"] > PARALLEL_RANK_PEAK_GB:
+                fail(f"parallel: rank {rank} {name} peaked at {r['peak_gb']:.2f} GB "
+                     f"(> {PARALLEL_RANK_PEAK_GB})")
+        for what, got, want in (("loss", rec["train"]["losses"], one_losses),
+                                ("gradient norm", rec["train"]["grad_norms"], one_norms)):
+            for step, (g, w) in enumerate(zip(got, want), 1):
+                if not abs(g - w) <= DIT_REL_TOL * abs(w):
+                    fail(f"parallel: rank {rank}'s step-{step} {what} {g} vs the one-process "
+                         f"{w} (relative tol {DIT_REL_TOL})")
+    counts = {}
+    for rec in recs:
+        for r in list(rec["runs"].values()) + [rec["train"]]:
+            for k, v in r["launches"].items():
+                counts[k] = counts.get(k, 0) + v
+    phase_s = time.perf_counter() - t_phase
+    runs = recs[0]["runs"]
+    log("parallel: " + "; ".join(
+        f"{name} {r['seconds']:.2f} s / {recs[1]['runs'][name]['seconds']:.2f} s, sent "
+        f"{r['bytes_sent'] / 1e9:.3f} / {recs[1]['runs'][name]['bytes_sent'] / 1e9:.3f} GB, "
+        f"peak {r['peak_gb']:.2f} / {recs[1]['runs'][name]['peak_gb']:.2f} GB, rel L2 "
+        f"{r['rel_l2']}" for name, r in runs.items())
+        + f"; train losses {recs[0]['train']['losses']} vs one process {one_losses}, "
+        f"gradient norms {recs[0]['train']['grad_norms']} vs {one_norms}, "
+        f"peak {recs[0]['train']['peak_gb']:.2f} / {recs[1]['train']['peak_gb']:.2f} GB; "
+        f"NCCL world 1 {nccl_s:.1f} s; two ranks {ranks_s:.1f} s; phase {phase_s:.1f} s")
+    print(json.dumps({"parallel": {"ranks": recs, "one_process_losses": one_losses,
+                                   "one_process_grad_norms": one_norms,
+                                   "nccl_world1_s": nccl_s, "two_ranks_s": ranks_s,
+                                   "phase_s": phase_s}}), flush=True)
+    return counts, {"phase_s": phase_s, "runs": runs, "one_losses": one_losses}
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -2495,6 +3048,7 @@ def main():
     w4_counts, w4 = phase_e2e_14b_w4()
     int8_counts, int8 = phase_cli_14b_int8(ex81)
     load_counts, load = phase_load(ex81)
+    parallel_counts, par = phase_parallel(ex81)
 
     import torch
 
@@ -2518,13 +3072,14 @@ def main():
         "loads " + ", ".join(f"{r['what']} {r['bytes'] / 1e9 / r['seconds']:.2f} GB/s"
                              for r in load["loads"])
         + f", load peak {load['peak_gb']:.3f} GB for {load['dit_gb']:.3f} GB of DiT, phase "
-        f"{load['phase_s']:.1f} s; whole run {time.perf_counter() - t_start:.0f} s; card {card}")
+        f"{load['phase_s']:.1f} s; parallel phase {par['phase_s']:.1f} s; whole run "
+        f"{time.perf_counter() - t_start:.0f} s; card {card}")
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
              "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
              "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts,
              "sample_cli_long": long_counts, "sample_cli_load": load_counts,
-             **remat_counts, "train_cli_lora": lora_counts}
+             **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

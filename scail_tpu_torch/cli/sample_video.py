@@ -13,6 +13,13 @@ Weights: `--load <dir>` reads the DiT from the SAT layout
 YAML's vae_pth / checkpoint_path files; a directory that exists but does not
 load raises.  Without a --load directory every model is random (smoke mode).
 
+Several processes: with WORLD_SIZE > 1 (and RANK / MASTER_ADDR / MASTER_PORT)
+torch.distributed is initialised and each process answers every
+WORLD_SIZE-th line of the --input-file, from line RANK, as the JAX CLI
+shards prompts over its processes.  The DiT itself runs on each process's
+card alone (the JAX CLI parses --mesh-seq / --mesh-model and reads neither;
+this one does not take them).
+
 Usage:
   python -m scail_tpu_torch.cli.sample_video \\
       --base configs/video_model/scail_1p3b.yaml configs/sampling/pose_cli.yaml \\
@@ -28,6 +35,7 @@ import time
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scail_tpu_torch.cli.arguments import get_args
 from scail_tpu_torch.data.video import (
@@ -41,6 +49,7 @@ from scail_tpu_torch.data.video import (
 )
 from scail_tpu_torch.diffusion.samplers import RFSampler, RFSamplerLong, make_tile_indices
 from scail_tpu_torch.engine import VideoDiffusionEngine
+from scail_tpu_torch.parallel.distributed import initialize_distributed
 from scail_tpu_torch.ops.resize import resize_bilinear_host
 
 REF_IMAGE_PATTERNS = ["ref.jpg", "ref.png", "ref_image.jpg", "ref_image.png"]
@@ -59,10 +68,13 @@ def read_from_cli():
         pass
 
 
-def read_from_file(path):
+def read_from_file(path, rank: int = 0, world_size: int = 1):
+    """(line, line number) of the requests of data rank `rank`: every
+    world_size-th line from line `rank`, blank lines skipped (the JAX CLI's
+    sharding of prompt lines over its processes)."""
     with open(path) as fin:
         for cnt, line in enumerate(fin):
-            if line.strip():
+            if cnt % world_size == rank and line.strip():
                 yield line.strip(), cnt
 
 
@@ -153,6 +165,7 @@ def sampling_main(args, model_config):
     """Answer every request; returns one record per request: {'case',
     'seconds', 'phases' (prepare/sample/decode/save seconds), 'outputs',
     'frames', 'finite'}."""
+    initialize_distributed(device=args.device)  # from the environment when WORLD_SIZE > 1
     engine = VideoDiffusionEngine(model_config, args, device=args.device)
     if not isinstance(engine.sampler, RFSampler):  # RFSamplerLong is one
         raise NotImplementedError(f"sampler {type(engine.sampler).__name__} is not ported")
@@ -166,7 +179,10 @@ def sampling_main(args, model_config):
     if args.input_type == "cli":
         data_iter = read_from_cli()
     elif args.input_type == "txt":
-        data_iter = read_from_file(args.input_file)
+        # one process per data rank: each answers its share of the lines
+        rank, world = ((dist.get_rank(), dist.get_world_size()) if dist.is_initialized()
+                       else (0, 1))
+        data_iter = read_from_file(args.input_file, rank, world)
     else:
         raise NotImplementedError(args.input_type)
 

@@ -11,11 +11,20 @@ read in f32); the VAE and encoders then come from the YAML's file paths.
 the remat policy (`remat_policy`: default, save_attn, save_attn_frac with
 `remat_save_frac`, offload_attn) when `checkpoint_activations` is on.
 
+Several ranks: one process per rank, launched with RANK / WORLD_SIZE /
+MASTER_ADDR / MASTER_PORT (and LOCAL_RANK for the card) and --distributed;
+--mesh-seq and --mesh-model lay the world out as data x seq x model
+(parallel/mesh.py), --shard-activations shards the DiT's carries over the
+model ranks.  Each data rank loads its own slice of the dataset; rank 0
+writes the checkpoints (full state dicts).
+
 Usage:
   python -m scail_tpu_torch.cli.train \\
       --base configs/video_model/scail_1p3b.yaml --data-root /path/to/examples \\
       --save ckpts/run1 [--load DIR] [--lora-rank 16] [--image-size 512 896 --num-frames 81] \\
       [--device cuda]
+  RANK=r WORLD_SIZE=2 MASTER_ADDR=localhost MASTER_PORT=29500 \\
+      python -m scail_tpu_torch.cli.train ... --distributed --mesh-model 2
 """
 
 from __future__ import annotations
@@ -24,16 +33,9 @@ import argparse
 import sys
 
 import torch
+import torch.distributed as dist
 
 from scail_tpu_torch.utils.config import load_configs, split_reference_config
-
-# flags of the JAX CLI that the port does not run yet, with the ROADMAP item
-UNPORTED_FLAGS = {
-    "mesh_seq": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
-    "mesh_model": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
-    "distributed": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
-    "shard_activations": "ROADMAP Queue 1 item 13 (parallelism over torch.distributed)",
-}
 
 
 def build_argparser():
@@ -55,18 +57,16 @@ def build_argparser():
                    help="torch device; 'cuda' raises when CUDA is not available")
     p.add_argument("--lora-rank", type=int, default=0,
                    help=">0 fine-tunes LoRA factors of this rank on the DiT")
-    p.add_argument("--mesh-seq", type=int, default=1)
-    p.add_argument("--mesh-model", type=int, default=1)
-    p.add_argument("--shard-activations", action="store_true")
-    p.add_argument("--distributed", action="store_true")
+    p.add_argument("--mesh-seq", type=int, default=1,
+                   help="sequence-parallel ranks (the DiT's tokens shard over them)")
+    p.add_argument("--mesh-model", type=int, default=1,
+                   help="tensor-parallel ranks (the DiT's heads and MLP shard over them)")
+    p.add_argument("--shard-activations", action="store_true",
+                   help="shard the DiT's carries between layers over the model ranks")
+    p.add_argument("--distributed", action="store_true",
+                   help="one process per rank: torch.distributed from RANK / WORLD_SIZE / "
+                        "MASTER_ADDR / MASTER_PORT; each data rank loads its own data slice")
     return p
-
-
-def _check_ported(args) -> None:
-    for flag, item in UNPORTED_FLAGS.items():
-        value = getattr(args, flag)
-        if value and not (flag.startswith("mesh_") and value == 1):
-            raise NotImplementedError(f"--{flag.replace('_', '-')} is not ported: {item}")
 
 
 def main(argv=None):
@@ -76,15 +76,33 @@ def main(argv=None):
     from scail_tpu_torch.engine import VideoDiffusionEngine
     from scail_tpu_torch.training.engine import TrainConfig, Trainer
 
+    from scail_tpu_torch.parallel.distributed import initialize_distributed
+    from scail_tpu_torch.parallel.mesh import DATA_AXIS, MeshSpec, make_mesh
+
     args = build_argparser().parse_args(argv)
-    _check_ported(args)
+    if args.distributed:
+        initialize_distributed(device=args.device)
+    world = dist.get_world_size() if dist.is_initialized() else 1
+    mesh = None
+    if args.mesh_seq * args.mesh_model > 1 or world > 1:
+        mesh = make_mesh(MeshSpec.infer(world, seq=args.mesh_seq, model=args.mesh_model))
+        if args.lora_rank > 0 and args.mesh_model > 1:
+            raise NotImplementedError("--lora-rank with --mesh-model > 1: tensor parallel "
+                                      "shards plain linears only")
     run_cfg, model_cfg = split_reference_config(load_configs(args.base))
+    if args.shard_activations:
+        model_cfg = dict(model_cfg)
+        nc = dict(model_cfg.get("network_config", {}))
+        nc["params"] = dict(nc.get("params", {}) or {}, shard_activations=True)
+        model_cfg["network_config"] = nc
     engine = VideoDiffusionEngine(dict(model_cfg), dict(run_cfg), device=args.device)
     dev = engine.device
     if args.load:
         engine.load_checkpoint(args.load, trainable=True)
     else:
         engine.init_params(torch.Generator(device=dev).manual_seed(args.seed), trainable=True)
+    if mesh is not None:
+        engine.shard_params(mesh)
     if args.lora_rank > 0:
         from scail_tpu_torch.training.lora import add_lora, lora_mask
 
@@ -104,21 +122,25 @@ def main(argv=None):
     tconf = TrainConfig(train_iters=args.train_iters, lr=args.lr,
                         warmup_iters=args.warmup_iters, grad_accum=args.grad_accum,
                         save_dir=args.save, seed=args.seed)
-    trainer = Trainer(engine.dit, loss_fn, tconf, model_config=dict(model_cfg))
+    trainer = Trainer(engine.dit, loss_fn, tconf, model_config=dict(model_cfg), mesh=mesh,
+                      rules=engine.param_rules)
     if args.resume:
         trainer.resume()
 
     ds = VideoPoseDataset(args.data_root, image_size=tuple(args.image_size),
                           num_frames=args.num_frames)
     print(f"dataset: {len(ds)} examples from {args.data_root}", flush=True)
-    # --batch-size is per microbatch: one step takes grad_accum x batch_size
-    # examples, reshaped to a leading (grad_accum, ...) axis
+    # --batch-size is per microbatch and per data rank: one step takes
+    # grad_accum x batch_size examples on each data rank, from its own slice
+    # of each epoch, reshaped to a leading (grad_accum, ...) axis
     accum = max(1, args.grad_accum)
-    if len(ds) < args.batch_size * accum:
-        raise SystemExit(f"dataset too small: {len(ds)} examples < batch_size x grad_accum = "
-                         f"{args.batch_size}x{accum}; no batch could be drawn")
+    d_rank, d_size = (mesh.rank(DATA_AXIS), mesh.size(DATA_AXIS)) if mesh else (0, 1)
+    per_rank = len(ds) // d_size
+    if per_rank < args.batch_size * accum:
+        raise SystemExit(f"dataset too small: {per_rank} examples per data rank < batch_size x "
+                         f"grad_accum = {args.batch_size}x{accum}; no batch could be drawn")
     train_loader = make_loaders(ds, args.batch_size * accum, seed=args.seed,
-                                start_iter=trainer.step)
+                                start_iter=trainer.step, rank=d_rank, world_size=d_size)
 
     def to_device(batch):
         out = {}

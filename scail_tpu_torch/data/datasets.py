@@ -67,15 +67,20 @@ class VideoPoseDataset:
 
 class DistributedBatchSampler:
     """Deterministic shuffled epochs of full batches, resumable at
-    `start_iter` batches: the JAX sampler on one data-parallel rank (sharding
-    over ranks waits for torch.distributed)."""
+    `start_iter` batches, each epoch's permutation cut into `world_size`
+    equal slices of which data rank `rank` takes its own (the JAX sampler,
+    shuffled, dropping the remainder)."""
 
-    def __init__(self, n: int, batch_size: int, seed: int = 0, start_iter: int = 0):
+    def __init__(self, n: int, batch_size: int, seed: int = 0, start_iter: int = 0,
+                 rank: int = 0, world_size: int = 1):
         self.n, self.batch_size = n, batch_size
         self.seed, self.start_iter = seed, start_iter
+        self.rank, self.world_size = rank, world_size
 
     def epoch_indices(self, epoch: int) -> np.ndarray:
-        return np.random.default_rng(self.seed + epoch).permutation(self.n)
+        idx = np.random.default_rng(self.seed + epoch).permutation(self.n)
+        per = self.n // self.world_size
+        return idx[self.rank * per:(self.rank + 1) * per]
 
     def __iter__(self) -> Iterator[List[int]]:
         it = 0
@@ -142,8 +147,10 @@ class DataLoader:
             stop.set()
 
 
-def make_loaders(train_ds, batch_size: int, *, seed: int = 0, start_iter: int = 0):
-    """The training loader, from batch `start_iter` of the seeded epochs (the
-    JAX function also builds a validation loader, which no caller uses)."""
+def make_loaders(train_ds, batch_size: int, *, seed: int = 0, start_iter: int = 0,
+                 rank: int = 0, world_size: int = 1):
+    """The training loader of data rank `rank` of `world_size`, from batch
+    `start_iter` of the seeded epochs (the JAX function also builds a
+    validation loader, which no caller uses)."""
     return DataLoader(train_ds, DistributedBatchSampler(len(train_ds), batch_size, seed,
-                                                        start_iter))
+                                                        start_iter, rank, world_size))

@@ -8,8 +8,12 @@ Correlated ucg: `cor_embs` lists embedder indices whose dropout is drawn
 jointly, one categorical draw per batch element over the 2**len(cor_embs)
 on/off combinations with probabilities `cor_p`; bit k of the draw drops
 embedder cor_embs[k].  The correlated embedders are embedded first, the
-rest after them in their order.  The draws come from RandomState(0): the
-JAX package seeds it with its process index, 0 on one process.
+rest after them in their order.  The draws come from RandomState(rank), the
+process's torch.distributed rank (0 on one process), as the JAX package
+seeds it with its process index: data-parallel ranks hold different
+examples and draw different dropouts.  Under a seq or model mesh the ranks
+of one data group hold the same examples, so the engine reseeds the stream
+with the data coordinate (`seed_ucg`, from engine.shard_params).
 """
 
 from __future__ import annotations
@@ -18,6 +22,7 @@ from typing import Dict, List, Optional
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
 from scail_tpu_torch.utils.registry import instantiate_from_config, register
 
@@ -44,8 +49,11 @@ class GeneralConditioner:
         if self.cor_embs and len(self.cor_p) != 2 ** len(self.cor_embs):
             raise ValueError(f"cor_p needs one probability per on/off combination: expected "
                              f"{2 ** len(self.cor_embs)}, got {len(self.cor_p)}")
-        # one process (index 0) until torch.distributed arrives
-        self.ucg_prng = np.random.RandomState(0)
+        self.seed_ucg(dist.get_rank() if dist.is_available() and dist.is_initialized() else 0)
+
+    def seed_ucg(self, seed: int) -> None:
+        """Restart the ucg dropout stream from RandomState(seed)."""
+        self.ucg_prng = np.random.RandomState(seed)
 
     def _legacy_ucg(self, emb, batch: Dict, cond_or_not) -> Dict:
         """Swap in the legacy ucg value: per element with probability

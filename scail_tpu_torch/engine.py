@@ -85,6 +85,13 @@ class VideoDiffusionEngine:
         self.network = instantiate_from_config(network_config)
         self.network.config.check_supported()
         self.dit = None
+        # parallel.mesh.Mesh of a sharded DiT (shard_params), else None
+        self.mesh = None
+        # parallel.sharding.PathRules the DiT was sharded by (shard_params)
+        self.param_rules = None
+        # (rank, size) of this process among the data-parallel ranks: the
+        # training draws are made for the global batch and this slice kept
+        self.data_shard = (0, 1)
 
         def build(key, cond=True):
             return instantiate_from_config(mc[key]) if cond and mc.get(key) else None
@@ -167,8 +174,35 @@ class VideoDiffusionEngine:
         self.dit = dit.requires_grad_(True).train() if trainable else dit.eval()
         return self.dit
 
+    def shard_params(self, mesh):
+        """Keep this rank's tensor-parallel slice of the DiT's parameters
+        (by `param_rules`, which the Trainer takes to gather and re-shard
+        them) and run the DiT under `mesh`.  The training draws are then
+        made for the global batch and sliced by the rank's data coordinate,
+        and the conditioner's ucg stream is seeded with that coordinate:
+        the seq and model ranks of one data group hold the same batch and
+        must drop the same prompts."""
+        from scail_tpu_torch.ops.quant import QuantizedLinear
+        from scail_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS
+        from scail_tpu_torch.parallel.sharding import dit_param_rules, shard_module_
+
+        self.param_rules = dit_param_rules()
+        if mesh.size(MODEL_AXIS) > 1:
+            bad = [n for n, m in self.dit.named_modules()
+                   if isinstance(m, QuantizedLinear) or getattr(m, "lora_a", None) is not None]
+            if bad:
+                raise NotImplementedError(f"tensor parallel shards plain linears only; "
+                                          f"{bad[0]} is quantized or carries LoRA factors")
+            shard_module_(self.dit, self.param_rules, mesh)
+        self.mesh = None if mesh.trivial else mesh
+        self.data_shard = (mesh.rank(DATA_AXIS), mesh.size(DATA_AXIS))
+        if self.conditioner is not None:
+            self.conditioner.seed_ucg(mesh.rank(DATA_AXIS))
+        return self.dit
+
     def network_fn(self):
-        """(x, c_noise, cond, **kw) -> velocity, over the DiT."""
+        """(x, c_noise, cond, **kw) -> velocity, over the DiT (under the
+        engine's mesh, if any)."""
         cfg = self.network.config
 
         def fn(x, c_noise, cond: Dict, **kw):
@@ -180,7 +214,7 @@ class VideoDiffusionEngine:
             return self.dit(x, c_noise, cond["crossattn"], ref_concat=cond["ref_concat"],
                             concat_smpl_render=cond["concat_smpl_render"],
                             image_clip_features=cond.get("image_clip_features"),
-                            history_mask=kw.get("history_mask"), **extra)
+                            history_mask=kw.get("history_mask"), mesh=self.mesh, **extra)
 
         return fn
 
@@ -220,8 +254,23 @@ class VideoDiffusionEngine:
     # ------------------------------------------------------------------
     # training (the JAX engine's loss / shared_step)
     # ------------------------------------------------------------------
+    def _global_draw(self, draw, b: int):
+        """draw(n) for the global batch (n = b x the data size), this data
+        rank's b rows: every data rank draws what one rank would draw for the
+        whole batch (on one rank, draw(b) itself)."""
+        r, size = self.data_shard
+        return draw(b * size)[r * b:(r + 1) * b]
+
     def loss(self, generator: torch.Generator, latents, cond: Dict, history_mask=None, **kw):
-        """Per-sample training loss of the DiT on `latents` (b,)."""
+        """Per-sample training loss of the DiT on `latents` (b,); sigma, then
+        the noise, drawn for the global batch (`_global_draw`) unless given."""
+        b, dev = latents.shape[0], latents.device
+        sampler = getattr(self.loss_fn, "sigma_sampler", None)
+        if sampler is not None and kw.get("sigma") is None:
+            kw["sigma"] = self._global_draw(lambda n: sampler(generator, n), b)
+        if kw.get("noise") is None:
+            kw["noise"] = self._global_draw(lambda n: torch.randn(
+                (n, *latents.shape[1:]), generator=generator, device=dev), b)
         return self.loss_fn(generator, self.network_fn(), self.denoiser, cond, latents,
                             history_mask=history_mask,
                             patch_size=self.network.config.patch_size, **kw)
@@ -257,8 +306,8 @@ class VideoDiffusionEngine:
             ref_concat = self.encode_first_stage(ref, force_encode=True, streamed=False)
             latents = self.encode_first_stage(x_pix, force_encode=True)
             pose_latent = self.encode_first_stage(_half_res(pose_pix), force_encode=True)
-            keep_pose = torch.rand((b,), generator=generator, device=self.device) \
-                >= self.pose_dropout
+            keep_pose = self._global_draw(lambda n: torch.rand(
+                (n,), generator=generator, device=self.device), b) >= self.pose_dropout
             pose_latent = pose_latent * append_dims(keep_pose.to(pose_latent.dtype), 5)
             if "crossattn" in batch:
                 cond = {"crossattn": batch["crossattn"]}

@@ -17,8 +17,28 @@ order of ops/sta.py (one gather before the layers, one after) with q and k
 roped in torch, as the JAX package does; attn_impl='pallas_int8' ropes q and
 k in torch and runs the int8-QK flash kernel (ops/attention.py
 attention_int8).  Linears replaced by ops/quant.py's QuantizedLinear (W8A16 /
-W4A16) run the quantized matmul kernel.  The JAX package's Ulysses, ring and
-MoE options raise NotImplementedError.  For training,
+W4A16) run the quantized matmul kernel.  MoE raises NotImplementedError.
+attn_impl 'ulysses' and 'ring' without a mesh compute the dense path with q
+and k roped by the rotary kernel, as the JAX package does.
+
+Under a mesh (parallel/mesh.py; `forward(mesh=...)`) each rank computes only
+its shard, with explicit collectives (parallel/comm.py), as the JAX
+dit_forward's mesh paths: the seq ranks each keep a contiguous S/P of the
+token rows after the patch embed (tile-major first under STA), the rotary
+tables sliced by global row; the model ranks hold the column-parallel
+linears' heads and the row-parallel linears' inputs (parallel/sharding.py,
+`shard_params`), all-reduce the row-parallel outputs and add the bias once
+after; the replicated input of each column-parallel block passes Megatron's
+`copy_to`; the full-width q/k RMS norm all-reduces its sum of squares over
+'model'.  Self-attention: 'ulysses' (parallel/ulysses.py, K2), 'ring'
+(parallel/ring.py, K2 per step), 'sta' under seq > 1 Ulysses with the
+windowed kernels inside, under model > 1 alone the windowed kernels on the
+rank's heads, else the rank's q rows against k and v all-gathered over
+'seq'.  Cross-attention runs on each rank's rows and heads.  The final
+layer projects the rank's rows, which are all-gathered over 'seq' before the
+unpatchify.  shard_activations keeps the carries between layers sharded over
+'model' along the hidden dimension.  Shapes that do not divide the mesh
+raise (there is no global array to fall back to).  For training,
 `remat` checkpoints each layer under `remat_policy`, as the JAX package's
 policies: 'default' recomputes the whole layer; 'save_attn' keeps each
 layer's flash outputs (out, lse) across the recompute, so the recompute
@@ -37,6 +57,7 @@ import functools
 from typing import Optional, Tuple
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint, noop_context_fn
 
@@ -49,16 +70,17 @@ from scail_tpu_torch.ops.fused_norms import adaln_layer_norm, apply_rotary_fused
 from scail_tpu_torch.ops.norms import layer_norm, rms_norm
 from scail_tpu_torch.ops.rotary import build_scail_rope
 from scail_tpu_torch.ops.sta import sta_attention, sta_plan
+from scail_tpu_torch.parallel import comm
+from scail_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS
+from scail_tpu_torch.parallel.ring import check_ring_rows, ring_attention
+from scail_tpu_torch.parallel.ulysses import ulysses_attention
 from scail_tpu_torch.utils.registry import register
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
-# attn_impl values of the JAX package that the port does not run yet, with
-# the ROADMAP item that brings each
-UNPORTED_ATTN = {
-    "ulysses": "ROADMAP Queue 1: torch.distributed sequence parallelism (Ulysses)",
-    "ring": "ROADMAP Queue 1: torch.distributed sequence parallelism (ring attention)",
-}
+# self-attention impls of the sequence-parallel paths (the dense path without
+# a mesh)
+SEQ_PARALLEL_ATTN = ("ulysses", "ring")
 # remat policies: 'default' recomputes each layer; the others keep the flash
 # outputs across the recompute (on the device, or in pinned host memory)
 REMAT_POLICIES = ("default", "save_attn", "save_attn_frac", "offload_attn")
@@ -96,6 +118,10 @@ class DiTConfig:
     # save_attn_frac: the share of the layers (the first ones) that keep the
     # flash outputs
     remat_save_frac: float = 0.7
+    # under a mesh with model > 1: the carries between layers sharded over
+    # 'model' along the hidden dimension (a layer gathers them before its
+    # LayerNorm and keeps its slice after the last residual add)
+    shard_activations: bool = False
     attn_impl: str = "auto"
     # attn_impl='sta' (ops/sta.py): strip tiles of (sta_tile[0] latent frames,
     # sta_tile[1] latent rows, full width), the clamped window in tiles, the
@@ -126,10 +152,10 @@ class DiTConfig:
         """The impl of the layers' kernels ('auto' | 'xla'): under 'sta' the
         dense fallback and the cross-attention take sta_impl, under
         'pallas_int8' the int8 attention and the cross-attention quant_impl
-        (the JAX cross_impl is 'auto' for both); the AdaLN and rotary
-        kernels follow."""
-        return {"sta": self.sta_impl, "pallas_int8": self.quant_impl}.get(self.attn_impl,
-                                                                          self.attn_impl)
+        (the JAX cross_impl is 'auto' for both), under 'ulysses' and 'ring'
+        the kernels; the AdaLN and rotary kernels follow."""
+        return {"sta": self.sta_impl, "pallas_int8": self.quant_impl, "ulysses": "auto",
+                "ring": "auto"}.get(self.attn_impl, self.attn_impl)
 
     @staticmethod
     def from_network_config(params: dict, **overrides) -> "DiTConfig":
@@ -169,6 +195,7 @@ class DiTConfig:
             remat=p.get("remat", False),
             remat_policy=p.get("remat_policy", "default"),
             remat_save_frac=p.get("remat_save_frac", 0.7),
+            shard_activations=p.get("shard_activations", False),
             dtype={"bf16": "bfloat16", "fp16": "float16", "fp32": "float32"}.get(
                 p.get("dtype", "bf16"), p.get("dtype", "bfloat16")),
         )
@@ -179,12 +206,10 @@ class DiTConfig:
 
     def check_supported(self) -> None:
         """Raise for the JAX package's options this port does not run."""
-        if self.attn_impl in UNPORTED_ATTN:
-            raise NotImplementedError(f"attn_impl={self.attn_impl!r} is not ported: "
-                                      f"{UNPORTED_ATTN[self.attn_impl]}")
-        if self.attn_impl not in ATTN_IMPLS + ("sta", "pallas_int8"):
+        if self.attn_impl not in ATTN_IMPLS + ("sta", "pallas_int8") + SEQ_PARALLEL_ATTN:
             raise ValueError(f"unknown attn_impl {self.attn_impl!r}, expected one of "
-                             f"{ATTN_IMPLS} (kernels, plain), 'sta' or 'pallas_int8'")
+                             f"{ATTN_IMPLS} (kernels, plain), 'sta', 'pallas_int8' or "
+                             f"{SEQ_PARALLEL_ATTN}")
         for field in ("sta_impl", "quant_impl"):
             if getattr(self, field) not in ATTN_IMPLS:
                 raise ValueError(f"unknown {field} {getattr(self, field)!r}, expected one of "
@@ -329,10 +354,14 @@ class DiT(nn.Module):
 
     def forward(self, x, timesteps, context, *, ref_concat, concat_smpl_render,
                 image_clip_features=None, history_mask=None, cfg_scale=None,
-                h_shift: int = 0, w_shift: int = 0):
+                h_shift: int = 0, w_shift: int = 0, mesh=None):
         """x (b, T, 16, H, W) noisy latent, timesteps (b,) c_noise, context
-        (b, S_txt, text_dim); returns the velocity (b, T, 16, H, W)."""
+        (b, S_txt, text_dim); returns the velocity (b, T, 16, H, W).  Under a
+        non-trivial `mesh` the inputs are this data rank's, replicated over
+        its seq and model ranks, and so is the result."""
         cfg = self.config
+        if mesh is not None and mesh.trivial:
+            mesh = None
         lin = functools.partial(dense, impl=cfg.quant_impl)
         cdtype = cfg.compute_dtype
         eps = cfg.layernorm_epsilon
@@ -389,10 +418,23 @@ class DiT(nn.Module):
             if sta is not None:
                 hidden = hidden[:, sta.order]
                 attn_pos, video_rows = sta, sta.video_rows
+        if mesh is not None:
+            # this rank's rows (and the rotary rows they take), its heads, and
+            # the conditioning the column-parallel cross projections read
+            self._check_mesh(mesh, hidden.shape, x.shape)
+            rows = comm.local_slice(torch.arange(hidden.shape[1], device=dev), mesh,
+                                    SEQ_AXIS, 0)
+            hidden = comm.local_slice(hidden, mesh, SEQ_AXIS, 1)
+            attn_pos = _local_rows(attn_pos, rows)
+            context = comm.copy_to(context, mesh, MODEL_AXIS)
+            if clip_tokens is not None:
+                clip_tokens = comm.copy_to(clip_tokens, mesh, MODEL_AXIS)
+            if self._shards_carries(mesh):
+                hidden = comm.split(hidden, mesh, MODEL_AXIS, -1)
         remat = cfg.remat and torch.is_grad_enabled()
         keep = kept_flash_layers(cfg)
         for i, blk in enumerate(self.layers):
-            args = (blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos)
+            args = (blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos, mesh)
             if not remat:
                 hidden = self._layer(*args)
                 continue
@@ -410,27 +452,86 @@ class DiT(nn.Module):
             fmod = emb[:, None, :] + fl.adaln[None].to(emb.dtype)
         else:
             fmod = lin(fl.adaln_mlp, silu(emb)).reshape(b, 2, -1)
-        # only the video tokens are unpatchified: project just those rows
-        out = adaln_layer_norm(hidden[:, video_rows], fmod[:, 0:1], fmod[:, 1:2], eps=eps,
-                               round_ln=True, impl=cfg.kernel_impl)
+        if mesh is None:
+            # only the video tokens are unpatchified: project just those rows
+            hidden = hidden[:, video_rows]
+        elif self._shards_carries(mesh):
+            hidden = comm.gather(hidden, mesh, MODEL_AXIS, -1, replicated=True)
+        out = adaln_layer_norm(hidden, fmod[:, 0:1], fmod[:, 1:2], eps=eps, round_ln=True,
+                               impl=cfg.kernel_impl)
         out = lin(fl.linear, out)
+        if mesh is not None:
+            # every rank projected its rows: gather them, keep the video ones
+            out = comm.gather(out, mesh, SEQ_AXIS, 1, replicated=True)[:, video_rows]
         return _unpatchify(out, T, Hp, Wp, cfg.patch_size, cfg.out_channels)
 
-    def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos):
+    def _shards_carries(self, mesh) -> bool:
+        return self.config.shard_activations and mesh.size(MODEL_AXIS) > 1
+
+    def _check_mesh(self, mesh, tokens_shape, x_shape) -> None:
+        """Raise, before any collective, where the shapes do not divide the
+        mesh or the parameters are not this rank's shards."""
+        cfg = self.config
+        seq, model = mesh.size(SEQ_AXIS), mesh.size(MODEL_AXIS)
+        n, h = cfg.num_heads, cfg.hidden_size
+        if n % model or h % model or cfg.inner_hidden_size % model:
+            raise ValueError(f"heads {n}, hidden {h} and MLP width {cfg.inner_hidden_size} "
+                             f"must divide over {model} model ranks")
+        ulysses = cfg.attn_impl == "ulysses" or (cfg.attn_impl == "sta" and seq > 1)
+        if ulysses and n % (seq * model):
+            raise ValueError(f"heads {n} not divisible by seq*model shards ({seq}*{model}) "
+                             f"for attn_impl={cfg.attn_impl!r}")
+        S = tokens_shape[1]
+        if cfg.attn_impl == "ring":
+            check_ring_rows(S, mesh, {"x": tuple(x_shape), "tokens": tuple(tokens_shape)})
+        elif S % seq:
+            raise ValueError(f"attn_impl={cfg.attn_impl!r}: the sequence of {S} tokens does not "
+                             f"divide over {seq} seq ranks (x {tuple(x_shape)}, tokens "
+                             f"{tuple(tokens_shape)})")
+        weight = getattr(self.layers[0].qkv, "weight", None) if len(self.layers) else None
+        if model > 1 and (weight is None or weight.shape[0] != 3 * h // model):
+            raise ValueError(f"model={model} needs plain linears holding a model rank's shard "
+                             f"(qkv rows {3 * h // model}): shard the DiT's parameters "
+                             "(engine.shard_params or parallel.sharding.shard_module_)")
+
+    def _layer(self, blk, hidden, emb, adaln_emb, context, clip_tokens, attn_pos, mesh=None):
         """One DiT block: AdaLN self-attention (q roped in the kernel, or q
-        and k roped by the rotary kernel for sliding-tile and int8
-        attention), the dual text + CLIP cross-attention, and the AdaLN
-        GELU-tanh MLP."""
+        and k roped by the rotary kernel for sliding-tile, int8 and
+        sequence-parallel attention), the dual text + CLIP cross-attention,
+        and the AdaLN GELU-tanh MLP.  Under a mesh: this rank's rows and
+        heads, the collectives of the module docstring."""
         cfg = self.config
         eps = cfg.layernorm_epsilon
         lin = functools.partial(dense, impl=cfg.quant_impl)
         impl = cfg.kernel_impl
+        tp = mesh is not None and mesh.size(MODEL_AXIS) > 1
+        n_heads = cfg.num_heads // (mesh.size(MODEL_AXIS) if tp else 1)
 
         def heads(t):
-            return t.unflatten(-1, (cfg.num_heads, -1))
+            return t.unflatten(-1, (n_heads, -1))
 
         def qk_norm(t, norm):
-            return rms_norm(t, norm.scale if cfg.qk_ln_affine else None, eps=eps)
+            scale = norm.scale if cfg.qk_ln_affine else None
+            if not tp:
+                return rms_norm(t, scale, eps=eps)
+            if scale is not None:
+                scale = comm.local_slice(comm.copy_to(scale, mesh, MODEL_AXIS), mesh,
+                                         MODEL_AXIS, 0)
+            return _rms_norm_sharded(t, scale, mesh, cfg.hidden_size, eps)
+
+        def col(layer, t):
+            # column-parallel: the replicated input passes copy_to
+            return lin(layer, comm.copy_to(t, mesh, MODEL_AXIS) if tp else t)
+
+        def row(layer, t):
+            # row-parallel: partial sums reduced over 'model', then the bias once
+            if not tp:
+                return lin(layer, t)
+            y = comm.reduce_from(F.linear(t, layer.weight.to(t.dtype)), mesh, MODEL_AXIS)
+            return y + layer.bias.to(y.dtype) if layer.bias is not None else y
+
+        if mesh is not None and self._shards_carries(mesh):
+            hidden = comm.gather(hidden, mesh, MODEL_AXIS, -1, replicated=True)
 
         if cfg.share_adaln:
             mod = adaln_emb + blk.adaln[None].to(adaln_emb.dtype)
@@ -444,25 +545,47 @@ class DiT(nn.Module):
                                       interleaved=cfg.interleaved_rope, impl=impl)
 
         # self attention: q roped inside the flash kernel and k by the rotary
-        # kernel; or both roped before STA and int8 attention (JAX ropes in
-        # XLA when the rope is not fused)
+        # kernel; or both roped before STA, int8 and sequence-parallel
+        # attention (JAX ropes in XLA when the rope is not fused)
         ai = adaln_layer_norm(hidden, s_msa, sc_msa, eps=eps, round_ln=True, impl=impl)
-        q, k, v = lin(blk.qkv, ai).chunk(3, dim=-1)
+        q, k, v = col(blk.qkv, ai).chunk(3, dim=-1)
         if cfg.qk_ln:
             q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
-        if isinstance(attn_pos, _StaLayout):
-            attn = sta_attention(rope(q), rope(k), heads(v), pre_tiled=True, impl=impl,
-                                 **attn_pos.kwargs)
-        elif cfg.attn_impl == "pallas_int8":
+        sta_layout = isinstance(attn_pos, _StaLayout)
+        if sta_layout:
+            def sta(a, b_, c):
+                return sta_attention(a, b_, c, pre_tiled=True, impl=impl, **attn_pos.kwargs)
+
+            if mesh is not None and mesh.size(SEQ_AXIS) > 1:
+                attn = ulysses_attention(rope(q), rope(k), heads(v), mesh, attn_fn=sta)
+            else:
+                attn = sta(rope(q), rope(k), heads(v))
+        elif cfg.attn_impl == "pallas_int8" and mesh is None:
             attn = attention_int8(rope(q), rope(k), heads(v), impl=impl)
+        elif cfg.attn_impl == "ulysses" and mesh is not None:
+            attn = ulysses_attention(rope(q), rope(k), heads(v), mesh, impl=impl)
+        elif cfg.attn_impl == "ring" and mesh is not None:
+            attn = ring_attention(rope(q), rope(k), heads(v), mesh, impl=impl)
+        elif mesh is not None:
+            # the rank's q rows against k and v gathered over 'seq' (each rank
+            # uses the whole k and v, so their gradients reduce-scatter back)
+            kf, vf = (comm.gather(t, mesh, SEQ_AXIS, 1, replicated=False)
+                      for t in (rope(k), heads(v)))
+            if cfg.attn_impl == "pallas_int8":
+                attn = attention_int8(rope(q), kf, vf, impl=impl)
+            else:
+                attn = attention(rope(q), kf, vf, impl=impl)
+        elif cfg.attn_impl in SEQ_PARALLEL_ATTN:
+            attn = attention(rope(q), rope(k), heads(v), impl=impl)
         else:
             attn = attention(heads(q), heads(k), heads(v), impl=impl,
                              rope=(attn_pos.cos, attn_pos.sin),
                              rope_interleaved=cfg.interleaved_rope)
-        hidden = hidden + g_msa * lin(blk.attn_out, attn.flatten(2))
+        hidden = hidden + g_msa * row(blk.attn_out, attn.flatten(2))
 
-        # dual cross attention, no AdaLN modulation or gate
-        cq = lin(blk.cross_q, layer_norm(hidden, eps=eps))
+        # dual cross attention, no AdaLN modulation or gate; context and the
+        # CLIP tokens passed copy_to once, before the layers
+        cq = col(blk.cross_q, layer_norm(hidden, eps=eps))
         ck, cv = lin(blk.cross_kv, context).chunk(2, dim=-1)
         if cfg.qk_ln:
             cq, ck = qk_norm(cq, blk.cross_q_norm), qk_norm(ck, blk.cross_k_norm)
@@ -474,11 +597,40 @@ class DiT(nn.Module):
                                          impl=impl)
         else:
             cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
-        hidden = hidden + lin(blk.cross_out, cross.flatten(2))
+        hidden = hidden + row(blk.cross_out, cross.flatten(2))
 
         # MLP
         mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, round_ln=True, impl=impl)
-        return hidden + g_mlp * lin(blk.mlp_out, gelu_tanh(lin(blk.mlp_in, mi)))
+        hidden = hidden + g_mlp * row(blk.mlp_out, gelu_tanh(col(blk.mlp_in, mi)))
+        if mesh is not None and self._shards_carries(mesh):
+            hidden = comm.split(hidden, mesh, MODEL_AXIS, -1)
+        return hidden
+
+
+def _rms_norm_sharded(x, scale, mesh, width: int, eps: float):
+    """rms_norm over the full `width` of a projection whose columns are
+    sharded over 'model': the sum of squares all-reduced over the axis (both
+    ways: every rank uses the sum on its own columns); `scale` the rank's
+    slice of the affine scale."""
+    xf = x.float()
+    ss = comm.all_reduce(xf.square().sum(-1, keepdim=True), mesh, MODEL_AXIS)
+    xf = xf * torch.rsqrt(ss / width + eps)
+    if scale is not None:
+        xf = scale.float() * xf
+    return xf.to(x.dtype)
+
+
+def _local_rows(pos, rows):
+    """The rotary tables (or the STA layout's) restricted to this rank's rows."""
+    if isinstance(pos, _StaLayout):
+        return dataclasses.replace(pos, cos=pos.cos[rows], sin=pos.sin[rows])
+    return _RopeRows(cos=pos.cos[rows], sin=pos.sin[rows])
+
+
+@dataclasses.dataclass(frozen=True)
+class _RopeRows:
+    cos: torch.Tensor
+    sin: torch.Tensor
 
 
 def save_attn_head_layers(cfg: DiTConfig) -> int:

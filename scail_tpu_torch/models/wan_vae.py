@@ -32,6 +32,8 @@ from scail_tpu_torch.convert.torch_ckpt import load_mapped_, load_torch_state_di
 from scail_tpu_torch.convert.wan_vae_ckpt import wan_vae_source
 from scail_tpu_torch.models.common import container, random_init_
 from scail_tpu_torch.ops.norms import channel_rms_norm
+from scail_tpu_torch.parallel import comm
+from scail_tpu_torch.parallel.mesh import SEQ_AXIS
 from scail_tpu_torch.utils.registry import register
 
 CACHE_T = 2
@@ -370,6 +372,76 @@ def vae_decode(model: WanVAEModel, cfg: WanVAEConfig, z, *, streamed: bool = Fal
         out = _streamed(_decoder, model.decoder, cfg, x, [1] * x.shape[2])
     else:
         out = _decoder(model.decoder, x, cfg, _Cache(None), True)
+    return out.float().clamp(-1.0, 1.0).permute(0, 2, 1, 3, 4)
+
+
+# ---------------------------------------------------------------------------
+# Context parallel: frames sharded over the seq ranks, the halo from the
+# previous rank
+# ---------------------------------------------------------------------------
+class _PermuteCache(_Cache):
+    """Cache view of one seq rank's frames: each causal conv's cache is the
+    last frames of the previous rank's input at that conv, sent by it in one
+    point-to-point pair (the JAX _PermuteCache.pull's ppermute; the
+    reference's _pass_from_previous_rank, sgm/modules/cp_enc_dec.py:182-276).
+    Rank 0 takes the probe caches recorded while the replicated first frame
+    ran."""
+
+    def __init__(self, probe_caches: Dict[str, torch.Tensor], mesh, axis: str):
+        super().__init__(probe_caches)
+        self.mesh, self.axis = mesh, axis
+
+    def pull(self, name, x, n_frames=CACHE_T):
+        p, r = self.mesh.size(self.axis), self.mesh.rank(self.axis)
+        halo = x[:, :, -n_frames:].contiguous()
+        prev = torch.empty_like(halo)
+        sends = [(halo, r + 1)] if r < p - 1 else []
+        recvs = [(prev, r - 1)] if r > 0 else []
+        for req in comm.exchange(sends, recvs, self.mesh, self.axis):
+            req.wait()
+        return self.store[name].to(x.dtype) if r == 0 else prev
+
+
+def _context_parallel(stage, p, cfg, x, mesh, axis):
+    """Frame 0 replicated (recording the probe caches), frames 1.. split over
+    `axis` with the halos of _PermuteCache, the frames all-gathered."""
+    probe = _ZeroCache()
+    out0 = stage(p, x[:, :, :1], cfg, probe, True)
+    local = comm.local_slice(x[:, :, 1:], mesh, axis, 2)
+    outs = stage(p, local, cfg, _PermuteCache(probe.new, mesh, axis), False)
+    return torch.cat([out0, comm.all_gather(outs, mesh, axis, 2)], dim=2)
+
+
+def vae_encode_cp(model: WanVAEModel, cfg: WanVAEConfig, video, mesh, axis: str = SEQ_AXIS):
+    """Context-parallel encode (JAX vae_encode_cp): frame 0 on every rank,
+    the other 4k frames split over `axis` (k divisible by its size, at least
+    2 latent frames a rank); the same result as the streamed encode, on
+    every rank."""
+    x = video.permute(0, 2, 1, 3, 4).to(cfg.compute_dtype)
+    T, P = x.shape[2], mesh.size(axis)
+    if (T - 1) % (4 * P):
+        raise ValueError(f"need 1+4k frames with k % {P} == 0, got {T} frames")
+    if (T - 1) // (4 * P) < 2:
+        raise ValueError(f"too few frames per shard: need >=2 latent frames/device, got "
+                         f"{(T - 1) // (4 * P)}")
+    out = _context_parallel(_encoder, model.encoder, cfg, x, mesh, axis)
+    mu = _conv3d(model.conv1, out, t_pad=0, s_pad=0)[:, :cfg.z_dim].float()
+    mu = (mu - _stat(cfg.latent_mean, mu)) / _stat(cfg.latent_std, mu)
+    return mu.permute(0, 2, 1, 3, 4)
+
+
+def vae_decode_cp(model: WanVAEModel, cfg: WanVAEConfig, z, mesh, axis: str = SEQ_AXIS):
+    """Context-parallel decode (JAX vae_decode_cp): latent frame 0 on every
+    rank, frames 1..T-1 split over `axis` (at least 2 a rank)."""
+    zl = z.permute(0, 2, 1, 3, 4).float()
+    zl = (zl * _stat(cfg.latent_std, zl) + _stat(cfg.latent_mean, zl)).to(cfg.compute_dtype)
+    x = _conv3d(model.conv2, zl, t_pad=0, s_pad=0)
+    T, P = x.shape[2], mesh.size(axis)
+    if (T - 1) % P:
+        raise ValueError(f"need 1+m*{P} latent frames, got {T}")
+    if (T - 1) // P < 2:
+        raise ValueError("need >=2 latent frames per shard (halo width)")
+    out = _context_parallel(_decoder, model.decoder, cfg, x, mesh, axis)
     return out.float().clamp(-1.0, 1.0).permute(0, 2, 1, 3, 4)
 
 

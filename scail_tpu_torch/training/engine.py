@@ -9,9 +9,24 @@ full fine-tune, the LoRA factors under training/lora.py); the checkpoint
 holds every parameter and buffer of the model, so a LoRA run resumes with
 its base.
 
-One process on one device.  The random stream is one torch.Generator on the
-model's device, saved with the checkpoint, so a resumed run draws what the
-uninterrupted run would have drawn.
+The random stream is one torch.Generator on the model's device, saved with
+the checkpoint, so a resumed run draws what the uninterrupted run would have
+drawn.
+
+Under a mesh (parallel/mesh.py) every rank runs this loop on its shard: the
+model's tensor-parallel parameters are its slices (engine.shard_params), and
+so are their EMA-Adam moments and shadows, made from them; the Trainer takes
+the rules they were sharded by (engine.param_rules) to gather and re-shard
+them.  The gradients are summed over the ranks that share the rank's model
+coordinate (the mesh's 'replica' axis, data x seq: the seq ranks hold
+partial sums over their rows), flattened into a few buckets of one
+all-reduce each, and divided by the data size, so a step is the one-rank
+step on the global batch; the global norm counts each sharded tensor's
+slices once; a step is skipped on every rank or on none.  Every rank
+draws from the same seed: the loss function draws for the global batch and
+keeps its data slice (engine.loss).  Checkpoints hold full state dicts,
+gathered on every rank and written by rank 0, so a sharded run's checkpoint
+loads into a one-card run and the other way round; resume re-shards.
 """
 
 from __future__ import annotations
@@ -24,8 +39,12 @@ from typing import Any, Callable, Dict, Iterator, Optional
 
 import torch
 
+from scail_tpu_torch.parallel import comm
+from scail_tpu_torch.parallel.mesh import DATA_AXIS, MODEL_AXIS, REPLICA_AXIS
+from scail_tpu_torch.parallel.sharding import gather_state_dict, shard_state_dict
 from scail_tpu_torch.training.checkpoint import CheckpointManager, load_checkpoint, read_latest
-from scail_tpu_torch.training.ema_adam import FusedEmaAdam, clip_by_global_norm_, swap_in_ema
+from scail_tpu_torch.training.ema_adam import (EmaAdamState, FusedEmaAdam, clip_by_global_norm_,
+                                               swap_in_ema)
 from scail_tpu_torch.training.lr_schedules import annealing_lr
 
 
@@ -51,6 +70,10 @@ class TrainConfig:
     keep_every_checkpoints: int = 0
 
 
+# the most bytes of gradient flattened into one all-reduce under a mesh
+GRAD_BUCKET_BYTES = 1 << 28
+
+
 def _micro_batch(batch: Dict[str, Any], i: int, accum: int) -> Dict[str, Any]:
     """Microbatch i of a batch whose tensors lead with an (accum, ...) axis."""
     if accum == 1:
@@ -59,13 +82,32 @@ def _micro_batch(batch: Dict[str, Any], i: int, accum: int) -> Dict[str, Any]:
             for k, v in batch.items()}
 
 
+def _grad_buckets(grads, max_bytes: int = GRAD_BUCKET_BYTES):
+    """The gradients in order, cut into runs of one dtype and device of at
+    most max_bytes each (a larger tensor alone)."""
+    buckets, size = [], 0
+    for g in grads:
+        nbytes = g.numel() * g.element_size()
+        last = buckets[-1][-1] if buckets else None
+        if last is None or (last.dtype, last.device) != (g.dtype, g.device) \
+                or size + nbytes > max_bytes:
+            buckets.append([])
+            size = 0
+        buckets[-1].append(g)
+        size += nbytes
+    return buckets
+
+
 class Trainer:
     """Owns the optimizer and step state around
     loss_fn(generator, batch) -> scalar loss (mean over the batch), a
     function of `model`'s parameters that require grad."""
 
     def __init__(self, model: torch.nn.Module, loss_fn: Callable, config: TrainConfig,
-                 model_config: Optional[Dict] = None):
+                 model_config: Optional[Dict] = None, mesh=None, rules=None):
+        """mesh: the parallel.mesh.Mesh the model is sharded over (None or a
+        trivial mesh: one rank); rules: the parallel.sharding.PathRules it
+        was sharded by, needed under a non-trivial mesh."""
         if config.tensorboard or config.wandb:
             raise NotImplementedError("TensorBoard and wandb logging are not ported (ROADMAP "
                                       "Queue 1 item 12, the metric writers): metrics go to "
@@ -74,6 +116,11 @@ class Trainer:
         self.model = model
         self.model_config = model_config
         self.loss_fn = loss_fn
+        self.mesh = None if mesh is None or mesh.trivial else mesh
+        if self.mesh is not None and rules is None:
+            raise ValueError(f"a Trainer over the mesh {self.mesh.spec} needs the rules its "
+                             "model was sharded by (engine.param_rules)")
+        self.rules = rules
         self.params = {n: p for n, p in model.named_parameters() if p.requires_grad}
         if not self.params:
             raise ValueError("the model has no parameter that requires grad")
@@ -105,16 +152,63 @@ class Trainer:
                  for n, p in self.params.items()}
         for p in self.params.values():
             p.grad = None  # the optimizer reads `grads`; no second copy stays alive
+        if self.mesh is not None:
+            loss = self._reduce_grads(loss, grads)
         finite = bool(torch.isfinite(loss)) and all(
             bool(torch.isfinite(g).all()) for g in grads.values())
+        if self.mesh is not None:
+            flag = torch.tensor([float(finite)], device=loss.device)
+            for axis in (REPLICA_AXIS, MODEL_AXIS):  # the two together: every rank
+                comm.all_reduce_(flag, self.mesh, axis, "min")
+            finite = bool(flag > 0)
         ok = finite
-        grad_norm = clip_by_global_norm_(grads, cfg.clip_grad)
+        if self.mesh is None:
+            grad_norm = clip_by_global_norm_(grads, cfg.clip_grad)
+        else:
+            grad_norm = self._clip_sharded(grads, cfg.clip_grad)
         if ok:
             self.optimizer.step(self.params, grads, self.opt_state,
                                 self.schedule(self.opt_state.count + 1))
         self.step += 1
         self.skipped += 0 if ok else 1
         return {"loss": float(loss), "ok": ok, "grad_norm": float(grad_norm)}
+
+    def _reduce_grads(self, loss, grads):
+        """Sum the gradients over the ranks that share this rank's model
+        coordinate and divide by the data size (the one-rank gradient of the
+        global batch's mean loss), one all-reduce a bucket; returns the loss
+        averaged over 'data'."""
+        mesh = self.mesh
+        for bucket in _grad_buckets(list(grads.values())):
+            flat = torch.cat([g.reshape(-1) for g in bucket])
+            comm.all_reduce_(flat, mesh, REPLICA_AXIS).div_(mesh.size(DATA_AXIS))
+            for g, part in zip(bucket, flat.split([g.numel() for g in bucket])):
+                g.copy_(part.view_as(g))
+        loss = comm.all_reduce_(loss.detach().float().reshape(1).clone(), mesh, DATA_AXIS)
+        return loss[0] / mesh.size(DATA_AXIS)
+
+    def _sharded(self, name: str, t) -> bool:
+        rule = self.rules.rule_for(name, t.dim())
+        return rule is not None and MODEL_AXIS in rule.spec
+
+    def _clip_sharded(self, grads, max_norm: float):
+        """clip_by_global_norm_ over the whole model: the squares of the
+        sharded gradients summed over 'model', each replicated one once."""
+        dev = next(iter(grads.values())).device
+        sharded = torch.zeros((), dtype=torch.float32, device=dev)
+        replicated = torch.zeros((), dtype=torch.float32, device=dev)
+        for n, g in grads.items():
+            sq = g.float().square().sum()
+            if self._sharded(n, g):
+                sharded = sharded + sq
+            else:
+                replicated = replicated + sq
+        sharded = comm.all_reduce_(sharded.reshape(1).clone(), self.mesh, MODEL_AXIS)[0]
+        norm = torch.sqrt(sharded + replicated)
+        if norm >= max_norm:
+            for g in grads.values():
+                g.div_(norm.to(g.dtype)).mul_(max_norm)
+        return norm
 
     def fit(self, data_iter: Iterator[Dict[str, Any]]) -> list:
         """Train from the current step to train_iters; returns each step's
@@ -127,7 +221,7 @@ class Trainer:
             history.append(metrics)
             losses.append(metrics["loss"])
             step = it + 1
-            if step % cfg.log_interval == 0:
+            if step % cfg.log_interval == 0 and self._writer_rank:
                 elapsed = time.perf_counter() - t_last
                 record = {"iter": step, "loss": sum(losses) / len(losses),
                           "lr": self.schedule(step), "grad_norm": metrics["grad_norm"],
@@ -144,6 +238,11 @@ class Trainer:
         self.wait_for_save()  # the last write has landed, or its failure raises
         return history
 
+    @property
+    def _writer_rank(self) -> bool:
+        """Whether this process logs and writes (rank 0 under a mesh)."""
+        return self.mesh is None or torch.distributed.get_rank() == 0
+
     def _log_metrics(self, record: Dict) -> None:
         if self.config.save_dir:
             os.makedirs(self.config.save_dir, exist_ok=True)
@@ -151,19 +250,36 @@ class Trainer:
                 f.write(json.dumps(record) + "\n")
 
     # ------------------------------------------------------------------
+    def _full(self, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+        """A state dict of this rank's slices made whole (a collective under a
+        mesh; the dict itself without one)."""
+        return sd if self.mesh is None else gather_state_dict(sd, self.rules, self.mesh)
+
     def state_dict(self) -> Dict[str, Any]:
         """The model's parameters and buffers (trained and frozen), the
-        optimizer state, the step and the random stream, by reference."""
-        return {"params": self.model.state_dict(),
-                "opt_state": self.opt_state.state_dict(), "step": self.step,
+        optimizer state, the step and the random stream, by reference; under
+        a mesh, the full tensors gathered from every rank."""
+        opt = self.opt_state.state_dict()
+        for field in ("exp_avg", "exp_avg_sq", "shadow"):
+            opt[field] = self._full(opt[field])
+        return {"params": self._full(self.model.state_dict()),
+                "opt_state": opt, "step": self.step,
                 "skipped": self.skipped, "generator": self.generator.get_state()}
 
-    def ema_params(self) -> Dict[str, torch.Tensor]:
+    def ema_params(self, state: Dict[str, Any] = None) -> Dict[str, torch.Tensor]:
         """The model's state with the EMA shadow in place of each trained
-        parameter (the EMA double-save; frozen ones keep their values)."""
-        return swap_in_ema(self.model.state_dict(), self.opt_state)[0]
+        parameter (the EMA double-save; frozen ones keep their values), from
+        `state` (this state_dict(), made when not given)."""
+        state = self.state_dict() if state is None else state
+        return swap_in_ema(state["params"], EmaAdamState(**state["opt_state"]))[0]
 
     def load_state_dict(self, state: Dict[str, Any]) -> None:
+        """Load a full state (re-sharded under a mesh)."""
+        if self.mesh is not None:
+            state = dict(state, params=shard_state_dict(state["params"], self.rules, self.mesh),
+                         opt_state=dict(state["opt_state"], **{
+                             f: shard_state_dict(state["opt_state"][f], self.rules, self.mesh)
+                             for f in ("exp_avg", "exp_avg_sq", "shadow")}))
         with torch.no_grad():
             self.model.load_state_dict(state["params"])
             opt = state["opt_state"]
@@ -174,14 +290,20 @@ class Trainer:
         self.step, self.skipped = int(state["step"]), int(state["skipped"])
         self.generator.set_state(state["generator"])
 
-    def save(self, iteration: int) -> str:
+    def save(self, iteration: int) -> Optional[str]:
+        """Save the full state; under a mesh every rank gathers and rank 0
+        writes (the others return None)."""
         cfg = self.config
+        state = self.state_dict()
+        ema = self.ema_params(state)
+        if not self._writer_rank:
+            return None
         if self._ckpt is None:
             self._ckpt = CheckpointManager(cfg.save_dir, keep_last=cfg.keep_last_checkpoints,
                                            keep_every=cfg.keep_every_checkpoints,
                                            async_save=cfg.async_save)
-        path = self._ckpt.save(iteration, self.state_dict(), model_config=self.model_config,
-                               ema_params=self.ema_params())
+        path = self._ckpt.save(iteration, state, model_config=self.model_config,
+                               ema_params=ema)
         print(f"saved checkpoint iter {iteration} -> {path}"
               + (" (async)" if cfg.async_save else ""), flush=True)
         return path

@@ -86,10 +86,34 @@ def test_dit_plain_impl_matches_kernel_wrapper_on_cpu():
     np.testing.assert_allclose(a, b, rtol=1e-6, atol=1e-6)
 
 
-@pytest.mark.parametrize("impl", ["ulysses", "ring"])
-def test_unported_attn_impl_raises(impl):
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiT(DiTConfig(**TINY, attn_impl=impl))
+@pytest.mark.parametrize("case", ["heads_over_seq_model", "ring_rows_over_seq",
+                                  "mesh_larger_than_world"])
+def test_mesh_errors_raise(case):
+    """What a mesh cannot run raises before any collective: heads that do not
+    divide over seq x model under Ulysses, a token count that does not divide
+    over the seq ranks under the ring (S = 4 + 4 + 1 at a 4x4 latent), and a
+    mesh larger than the world.  The checks take the single-process view of
+    a mesh (a Mesh without process groups)."""
+    from scail_tpu_torch.parallel.mesh import Mesh, MeshSpec, make_mesh
+
+    if case == "mesh_larger_than_world":
+        with pytest.raises(RuntimeError, match="needs 2 ranks but the world has 1"):
+            make_mesh(MeshSpec(seq=2))
+        return
+    impl, spec, hw, match = {
+        "heads_over_seq_model": ("ulysses", MeshSpec(seq=2, model=4), 8,
+                                 "heads 4 not divisible by seq\\*model"),
+        "ring_rows_over_seq": ("ring", MeshSpec(seq=2), 4, "attn_impl='ring'.*9 tokens"),
+    }[case]
+    inp = _inputs()
+    b = 1
+    inp = dict(inp, x=inp["x"][:, :1, :, :hw, :hw], ref=inp["ref"][..., :hw, :hw],
+               smpl=inp["smpl"][:, :1, :, :hw // 2, :hw // 2])
+    t = {k: torch.from_numpy(np.ascontiguousarray(v))[:b] for k, v in inp.items()}
+    with pytest.raises(ValueError, match=match):
+        DiT(DiTConfig(**TINY, attn_impl=impl))(
+            t["x"], t["t"], t["ctx"], ref_concat=t["ref"], concat_smpl_render=t["smpl"],
+            image_clip_features=t["clip"], mesh=Mesh(spec))
 
 
 @pytest.mark.parametrize("impl", ["pallas", "chunked"])

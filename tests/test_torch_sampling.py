@@ -414,7 +414,9 @@ def test_port_never_imports_jax():
         "assert 'scail_tpu_torch.cli.train' in names, names\n"
         "for m in ('ops.quant', 'ops.fused_norms', 'cli.bench_14b_quant', "
         "'cli.bench_14b_e2e', 'convert.torch_ckpt', 'convert.wan_vae_ckpt', "
-        "'training.lora'):\n"
+        "'training.lora', 'parallel.mesh', 'parallel.comm', 'parallel.distributed', "
+        "'parallel.sharding', 'parallel.ulysses', 'parallel.ring', "
+        "'parallel.cross_entropy'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -436,7 +438,9 @@ def test_port_sources_never_import_jax_or_the_jax_package():
     assert len(files) >= 30
     for new in ("ops/quant.py", "ops/fused_norms.py", "cli/bench_14b_quant.py",
                 "cli/bench_14b_e2e.py", "convert/torch_ckpt.py", "convert/wan_vae_ckpt.py",
-                "training/lora.py"):
+                "training/lora.py", "parallel/mesh.py", "parallel/comm.py",
+                "parallel/distributed.py", "parallel/sharding.py", "parallel/ulysses.py",
+                "parallel/ring.py", "parallel/cross_entropy.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}

@@ -542,12 +542,26 @@ def test_train_cli_trains_saves_and_resumes_on_cpu(tmp_path, monkeypatch):
     assert (save / "latest").read_text() == "3"
 
 
-@pytest.mark.parametrize("flag", [["--mesh-seq", "2"], ["--distributed"],
-                                  ["--shard-activations"]])
-def test_train_cli_raises_for_unported_flags(flag):
+@pytest.mark.parametrize("case", ["mesh_seq_on_one_process", "mesh_model_on_one_process",
+                                  "distributed_cuda_without_cuda"])
+def test_train_cli_raises_for_meshes_it_cannot_run(case, monkeypatch):
+    """A mesh that needs more ranks than the one process raises, and so does
+    --distributed asking for CUDA on a machine without it (no fallback to
+    the CPU)."""
     from scail_tpu_torch.cli import train
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    if case == "distributed_cuda_without_cuda":
+        if torch.cuda.is_available():
+            pytest.skip("this machine has CUDA")
+        monkeypatch.setenv("WORLD_SIZE", "2")
+        monkeypatch.setenv("RANK", "0")
+        monkeypatch.setenv("MASTER_ADDR", "localhost")
+        with pytest.raises(RuntimeError, match="CUDA is not available"):
+            train.main(["--data-root", ".", "--distributed"])
+        return
+    monkeypatch.delenv("WORLD_SIZE", raising=False)
+    flag = ["--mesh-seq", "2"] if case == "mesh_seq_on_one_process" else ["--mesh-model", "2"]
+    with pytest.raises(ValueError, match="world size 1 must be divisible by seq\\*model=2"):
         train.main(["--data-root", ".", "--device", "cpu"] + flag)
 
 
