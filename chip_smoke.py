@@ -118,6 +118,24 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  latent frames at 512x896 against the streamed decode.
                  Seconds, bytes sent and peak GB of each run per rank; each
                  rank under PARALLEL_RANK_PEAK_GB.
+  11. evals   -- the quality evals on random weights from seeds, each network at
+                 its published width, with TF32 switched on for the caller
+                 (each extractor must compute in f32 and hand the setting
+                 back): (a) I3D at 224 px on the 81-frame 512x896 clips of
+                 phases 5 and 5b, FVD(dense, STA) through cli/calculate_fvd
+                 (finite) and FVD(dense, dense) (|.| < 1e-3), the features of
+                 16 frames against the CPU's; (b) InceptionV3 on every 4th
+                 frame, `eval_fid ref` on the dense clip's, `calc` on the STA
+                 clip's, features against the CPU's; (c) ViT-g-14 (CLIP score),
+                 ViT-L/14 with the aesthetic MLP head and ViT-H-14 (HPS) at
+                 full depth, each also at 2 layers against the CPU, and LPIPS
+                 (VGG16) on 512x896 frame pairs against the CPU; every card
+                 result within 1e-4 relative L2 of the CPU's; ms per clip,
+                 image, prompt or pair and peak GB of each; (d) the STA gate,
+                 cli/validate_weights --smoke on examples_synth/001 at 512x128
+                 and 9 frames (where the sliding tiles divide the latent):
+                 both sampling passes, FVD of each against GT, the CLIP score,
+                 the report; exactly 2 forwards' launches in each pass.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -128,8 +146,9 @@ holds both against their plain versions at the main-path shapes).
 The line before the last is {"kernels": [...]}: per kernel its launches on the
 main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
 train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
-phases 7, 7b and 8, the --load request of phase 9 and the two ranks of phase
-10 (their runs summed), each counted from 0, and their sum), its largest
+phases 7, 7b and 8, the --load request of phase 9, the two ranks of phase
+10 (their runs summed) and the two sampling passes of validate_weights in
+phase 11, each counted from 0, and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
 larger of bytes moved over 3.35 TB/s and
@@ -3025,6 +3044,339 @@ def phase_parallel(ex81):
     return counts, {"phase_s": phase_s, "runs": runs, "one_losses": one_losses}
 
 
+
+# phase 11: the quality evals on random weights from seeds, every network at
+# its published width; the card's results against the port's CPU run of the
+# same function within EVAL_REL_TOL (f32 both sides; a TF32 convolution reads
+# ~1e-3, so the check also holds the extractors' full_f32)
+EVAL_REL_TOL = 1e-4
+# the STA gate's sampling geometry: 9 frames at 512 x 128 are 3 latent frames
+# of 32 x 8 patches, which the sliding tiles (3, 8) divide (the --smoke
+# geometry, 64 x 64 and 5 frames, runs dense attention in its STA pass)
+GATE_EXTRA = ["--image-size", "512", "128", "--sampling-num-frames", "9"]
+
+
+def _card_vs_cpu(label, got, want, tol=EVAL_REL_TOL):
+    """Fail unless `got` (card) is within `tol` relative L2 of `want` (CPU);
+    both numpy."""
+    import numpy as np
+    import torch
+
+    rel = _rel_l2(torch.from_numpy(got), torch.from_numpy(want))
+    log(f"evals: {label}: card vs CPU relative L2 {rel:.3e} (tol {tol:.0e})")
+    if not (np.isfinite(got).all() and rel <= tol):
+        fail(f"evals: {label} on the card disagrees with the CPU ({rel:.3e} > {tol:.0e})")
+    return rel
+
+
+def _tf32_still_on(label):
+    import torch
+
+    if not (torch.backends.cuda.matmul.allow_tf32 and torch.backends.cudnn.allow_tf32):
+        fail(f"evals: {label} did not restore the caller's TF32 settings")
+
+
+def _timed_on_card(fn):
+    """(fn()'s result, seconds, peak GB): one warm-up call, then one timed call
+    between device synchronisations, the peak over both."""
+    import torch
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    fn()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, time.perf_counter() - t0, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _free_card():
+    import gc
+
+    import torch
+
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def _evals_fvd(dense_clip, sta_clip, work, stats):
+    """(a) I3D at Kinetics-400 geometry on the two 81-frame clips: FVD through
+    the CLI, its self-distance, the card's features against the CPU's."""
+    import numpy as np
+    import torch
+
+    from scail_tpu_torch.cli import calculate_fvd
+    from scail_tpu_torch.evals.fvd import I3DFeatureExtractor, load_video_dir
+
+    dirs = {}
+    for name, clip in (("dense", dense_clip), ("sta", sta_clip)):
+        dirs[name] = os.path.join(work, f"fvd_{name}")
+        os.makedirs(dirs[name], exist_ok=True)
+        dst = os.path.join(dirs[name], os.path.basename(clip))
+        if not os.path.exists(dst):
+            os.symlink(clip, dst)
+    fvd = calculate_fvd.main(["--real", dirs["dense"], "--fake", dirs["sta"], "--device", "cuda"])
+    self_fvd = calculate_fvd.main(["--real", dirs["dense"], "--fake", dirs["dense"],
+                                   "--device", "cuda"])
+    _tf32_still_on("calculate_fvd")
+    log(f"evals: FVD(dense, STA) {fvd:.6f}, FVD(dense, dense) {self_fvd:.3e} (I3D, 81 frames, "
+        "random weights)")
+    if not (np.isfinite(fvd) and abs(self_fvd) < 1e-3):
+        fail(f"evals: FVD {fvd} not finite or self-distance {self_fvd} >= 1e-3")
+
+    clip = np.stack(load_video_dir(dirs["dense"]))  # (1, 81, 512, 896, 3)
+    if clip.shape != (1, 81, 512, 896, 3):
+        fail(f"evals: the dense clip reads {clip.shape}")
+    ext = I3DFeatureExtractor(device="cuda", seed=0)
+    feats, secs, peak = _timed_on_card(lambda: ext(clip))
+    stats["i3d"] = {"ms_per_clip": secs * 1e3, "frames": 81, "peak_gb": peak}
+    cpu = I3DFeatureExtractor(device="cpu")
+    cpu.model.load_state_dict(ext.model.state_dict())
+    short = clip[:, :16]
+    t0 = time.perf_counter()
+    want = cpu(short)
+    stats["i3d"]["cpu_s_16_frames"] = time.perf_counter() - t0
+    stats["i3d"]["rel_l2"] = _card_vs_cpu("I3D, 16 frames at 224", ext(short), want)
+    # the same clip with TF32 convolutions (the extractor's network called
+    # outside full_f32), for the record
+    from scail_tpu_torch.evals.fvd import preprocess_for_i3d
+
+    with torch.no_grad():
+        tf32 = ext.model(preprocess_for_i3d(short, 224, ext.device)).cpu().numpy()
+    stats["i3d"]["tf32_rel_l2"] = _rel_l2(torch.from_numpy(tf32), torch.from_numpy(want))
+    log(f"evals: I3D {secs * 1e3:.1f} ms per 81-frame clip, peak {peak:.2f} GB; features "
+        f"{feats.shape}; under TF32 the same features read {stats['i3d']['tf32_rel_l2']:.3e}")
+    stats["fvd"] = {"dense_vs_sta": fvd, "self": self_fvd}
+    del ext, cpu
+    _free_card()
+
+
+def _evals_fid(dense_clip, sta_clip, work, stats):
+    """(b) InceptionV3 on every 4th frame of each clip: `eval_fid ref` on the
+    dense clip's, `calc` on the STA clip's; the card's features against the
+    CPU's on two frames."""
+    import numpy as np
+    from PIL import Image
+
+    from scail_tpu_torch.cli import eval_fid
+    from scail_tpu_torch.data.video import load_video_frames
+    from scail_tpu_torch.evals.fid import InceptionFeatureExtractor
+
+    frames = {}
+    for name, clip in (("dense", dense_clip), ("sta", sta_clip)):
+        frames[name] = load_video_frames(clip)[0][::4]
+        d = os.path.join(work, f"frames_{name}")
+        os.makedirs(d, exist_ok=True)
+        for i, f in enumerate(frames[name]):
+            Image.fromarray(f).save(os.path.join(d, f"{i:03d}.png"))
+    ref = os.path.join(work, "fid_ref.npz")
+    eval_fid.main(["ref", "--images", os.path.join(work, "frames_dense"), "--stats", ref,
+                   "--device", "cuda"])
+    t0 = time.perf_counter()
+    fid = eval_fid.main(["calc", "--images", os.path.join(work, "frames_sta"), "--stats", ref,
+                         "--device", "cuda"])
+    stats["seconds"]["fid_calc"] = time.perf_counter() - t0
+    _tf32_still_on("eval_fid")
+    if not np.isfinite(fid):
+        fail(f"evals: FID {fid} not finite")
+    imgs = frames["dense"]
+    ext = InceptionFeatureExtractor(device="cuda", seed=0)
+    _, secs, peak = _timed_on_card(lambda: ext(imgs))
+    cpu = InceptionFeatureExtractor(device="cpu")
+    cpu.model.load_state_dict(ext.model.state_dict())
+    stats["inception"] = {"ms_per_image": secs * 1e3 / len(imgs), "images": len(imgs),
+                          "peak_gb": peak,
+                          "rel_l2": _card_vs_cpu("InceptionV3, 2 frames", ext(imgs[:2]),
+                                                 cpu(imgs[:2]))}
+    stats["fid"] = fid
+    log(f"evals: FID(dense frames, STA frames) {fid:.6f} over {len(imgs)} frames each; "
+        f"InceptionV3 {secs * 1e3 / len(imgs):.2f} ms per 512x896 frame, peak {peak:.2f} GB")
+    del ext, cpu
+    _free_card()
+    return frames
+
+
+def _clip_tower(label, cfg, images, prompts, stats):
+    """One CLIP model at full width and depth on the card (ms per image and
+    per prompt, peak), then both towers at 2 layers, card against CPU."""
+    import dataclasses
+
+    from scail_tpu_torch.evals.clip_score import ClipScorer, compute_clip_score
+
+    scorer = ClipScorer(cfg=cfg, device="cuda", seed=0)
+    emb, secs, peak = _timed_on_card(lambda: scorer.image_embed(images))
+    _, tsecs, tpeak = _timed_on_card(lambda: scorer.text_embed(prompts))
+    score = compute_clip_score(images, prompts, scorer.image_embed, scorer.text_embed)
+    _tf32_still_on(label)
+    del scorer
+    _free_card()
+    cut = dataclasses.replace(cfg, vision_layers=2, text_layers=2)
+    card = ClipScorer(cfg=cut, device="cuda", seed=1)
+    cpu = ClipScorer(cfg=cut, device="cpu")
+    cpu.model.load_state_dict(card.model.state_dict())
+    rel_i = _card_vs_cpu(f"{label} vision tower, 2 layers", card.image_embed(images[:2]),
+                  cpu.image_embed(images[:2]))
+    rel_t = _card_vs_cpu(f"{label} text tower, 2 layers", card.text_embed(prompts[:2]),
+                  cpu.text_embed(prompts[:2]))
+    del card, cpu
+    _free_card()
+    stats[label] = {"ms_per_image": secs * 1e3 / len(images),
+                    "ms_per_prompt": tsecs * 1e3 / len(prompts), "peak_gb": max(peak, tpeak),
+                    "score": score, "rel_l2_vision": rel_i, "rel_l2_text": rel_t,
+                    "vision": f"{cfg.vision_width} x {cfg.vision_layers}",
+                    "text": f"{cfg.text_width} x {cfg.text_layers}"}
+    log(f"evals: {label} ({stats[label]['vision']} vision, {stats[label]['text']} text): "
+        f"{secs * 1e3 / len(images):.2f} ms per image, {tsecs * 1e3 / len(prompts):.2f} ms "
+        f"per prompt, peak {max(peak, tpeak):.2f} GB, score {score:.4f}")
+    return emb, score
+
+
+def _evals_towers(frames, stats):
+    """(c) CLIP score on ViT-g-14, the aesthetic head on ViT-L/14, HPS on
+    ViT-H-14, LPIPS on VGG16, on the clips' frames."""
+    import numpy as np
+    import torch
+    from PIL import Image
+
+    from scail_tpu_torch.evals.aesthetic import (aesthetic_score_from_clip_embeddings,
+                                                 random_aesthetic_head)
+    from scail_tpu_torch.evals.lpips import LPIPS
+    from scail_tpu_torch.models.clip_score import ClipScoreConfig
+
+    images = [Image.fromarray(f) for f in frames["dense"][:8]]
+    prompts = ["a character dancing", "a person turns around on a stage",
+               "a figure raises both arms", "a dancer in a red dress", "a man walking",
+               "a woman jumping in a studio", "two feet tapping", "a slow spin"]
+    _clip_tower("clip_score_vit_g14", ClipScoreConfig.vit_g14(), images, prompts, stats)
+    emb, _ = _clip_tower("aesthetic_vit_l14", ClipScoreConfig.vit_l14(), images, prompts, stats)
+    aes = aesthetic_score_from_clip_embeddings(emb, random_aesthetic_head(0))
+    if not np.isfinite(aes).all():
+        fail("evals: aesthetic scores not finite")
+    stats["aesthetic_vit_l14"]["mean_rating"] = float(aes.mean())
+    _, hps = _clip_tower("hps_vit_h14", ClipScoreConfig.vit_h14(), images, prompts, stats)
+    stats["hps_vit_h14"]["hps"] = hps / 100.0
+
+    def pairs(n):
+        x = np.stack(frames["dense"][:n]).astype(np.float32) / 127.5 - 1.0
+        y = np.stack(frames["sta"][:n]).astype(np.float32) / 127.5 - 1.0
+        return (torch.from_numpy(x).permute(0, 3, 1, 2), torch.from_numpy(y).permute(0, 3, 1, 2))
+
+    model = LPIPS(device="cuda").init_random_(torch.Generator(device="cuda").manual_seed(0))
+    x, y = pairs(4)
+    xc, yc = x.cuda(), y.cuda()
+    d, secs, peak = _timed_on_card(lambda: model(xc, yc))
+    _tf32_still_on("LPIPS")
+    cpu = LPIPS()
+    cpu.load_state_dict(model.state_dict())
+    # two frames 4 apart of the dense clip: a pair that differs whatever the
+    # two clips hold
+    stats["lpips_vgg16"] = {"ms_per_pair": secs * 1e3 / 4, "pairs": 4, "peak_gb": peak,
+                            "mean": float(d.mean()),
+                            "rel_l2": _card_vs_cpu("LPIPS, 1 pair at 512x896",
+                                            model(xc[:1], xc[1:2]).cpu().numpy(),
+                                            cpu(x[:1], x[1:2]).numpy())}
+    if not torch.isfinite(d).all():
+        fail("evals: LPIPS not finite")
+    log(f"evals: LPIPS {secs * 1e3 / 4:.2f} ms per 512x896 pair, peak {peak:.2f} GB, mean "
+        f"{float(d.mean()):.6f}")
+    del model, cpu, xc, yc
+    _free_card()
+
+
+def _evals_gate(work):
+    """(d) the STA gate: validate_weights --smoke on examples_synth/001 on the
+    card; exact launches of each sampling pass."""
+    import shutil
+
+    import numpy as np
+
+    from scail_tpu_torch.cli import sample_video, validate_weights
+
+    ex = os.path.join(work, "examples")
+    if not os.path.isdir(os.path.join(ex, "001")):
+        shutil.copytree(os.path.join(ROOT, "examples_synth", "001"), os.path.join(ex, "001"))
+    passes = []
+    real_main = sample_video.main
+
+    def counted(argv):
+        reset_counts()
+        out = real_main(argv)
+        passes.append(launch_counts())
+        return out
+
+    argv = ["--smoke", "--device", "cuda", "--examples", ex, "--out",
+            os.path.join(work, "validate"), "--sample-extra"] + GATE_EXTRA
+    sample_video.main = counted
+    t0 = time.perf_counter()
+    try:
+        rc, text, value = validate_weights.run_stage("validate_weights", validate_weights.main,
+                                                     argv)
+    finally:
+        sample_video.main = real_main
+    secs = time.perf_counter() - t0
+    if rc or value != 0:
+        fail(f"evals: validate_weights exited with {value} (rc {rc})")
+    report = json.loads(text.strip().splitlines()[-1])
+    st = report["stages"]
+    for mode in ("dense", "sta"):
+        if st[f"sample_{mode}"]["rc"] or st[f"sample_{mode}"]["videos"] < 1:
+            fail(f"evals: validate_weights sample_{mode} {st[f'sample_{mode}']}")
+    for key in ("fvd_dense", "fvd_sta", "clip_score"):
+        if report[key] is None or not np.isfinite(report[key]):
+            fail(f"evals: validate_weights {key} = {report[key]}")
+    if "sta_validated" not in report or len(passes) != 2:
+        fail(f"evals: validate_weights report {report}, {len(passes)} sampling passes")
+    # 2 steps, one DiT forward at CFG batch 2 each
+    _exact(passes[0], {k: 2 * v for k, v in DIT_LAUNCHES.items()}, "validate_weights dense pass")
+    _exact(passes[1], {k: 2 * v for k, v in STA_DIT_LAUNCHES.items()},
+           "validate_weights STA pass")
+    log(f"evals: validate_weights --smoke in {secs:.1f} s: FVD dense {report['fvd_dense']}, "
+        f"STA {report['fvd_sta']}, CLIP score {report['clip_score']}, sta_validated "
+        f"{report['sta_validated']}; launches dense {passes[0]}, STA {passes[1]}")
+    return {k: passes[0][k] + passes[1][k] for k in passes[0]}, report, secs
+
+
+def phase_evals(dense_clip, sta_clip):
+    """Phase 11: FVD (I3D), FID (InceptionV3), the CLIP towers (ViT-g-14 CLIP
+    score, ViT-L/14 aesthetic, ViT-H-14 HPS) and LPIPS on random weights from
+    seeds at their published widths, each against its CPU run, with TF32 on
+    for the caller (the extractors must compute in f32 regardless and hand the
+    setting back); then the STA gate through validate_weights.  Returns the
+    gate's launches and the phase's record."""
+    import torch
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "evals")
+    os.makedirs(work, exist_ok=True)
+    stats = {"seconds": {}}
+    torch.backends.cuda.matmul.allow_tf32 = True
+    torch.backends.cudnn.allow_tf32 = True
+    try:
+        t0 = time.perf_counter()
+        _evals_fvd(dense_clip, sta_clip, work, stats)
+        t1 = time.perf_counter()
+        frames = _evals_fid(dense_clip, sta_clip, work, stats)
+        t2 = time.perf_counter()
+        _evals_towers(frames, stats)
+        stats["seconds"].update(fvd=t1 - t0, fid=t2 - t1, towers=time.perf_counter() - t2)
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    counts, report, gate_s = _evals_gate(work)
+    stats["validate_weights"] = {"seconds": gate_s, "fvd_dense": report["fvd_dense"],
+                                 "fvd_sta": report["fvd_sta"],
+                                 "clip_score": report["clip_score"],
+                                 "sta_validated": report["sta_validated"]}
+    phase_s = time.perf_counter() - t_phase
+    stats["phase_s"] = phase_s
+    stats["seconds"]["gate"] = gate_s
+    log(f"phase 11 (evals): {phase_s:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stats["seconds"].items()) + ")")
+    print(json.dumps({"evals": stats}), flush=True)
+    return counts, stats
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -3049,6 +3401,7 @@ def main():
     int8_counts, int8 = phase_cli_14b_int8(ex81)
     load_counts, load = phase_load(ex81)
     parallel_counts, par = phase_parallel(ex81)
+    eval_counts, ev = phase_evals(records[1]["outputs"][0], sta_record["outputs"][0])
 
     import torch
 
@@ -3072,14 +3425,17 @@ def main():
         "loads " + ", ".join(f"{r['what']} {r['bytes'] / 1e9 / r['seconds']:.2f} GB/s"
                              for r in load["loads"])
         + f", load peak {load['peak_gb']:.3f} GB for {load['dit_gb']:.3f} GB of DiT, phase "
-        f"{load['phase_s']:.1f} s; parallel phase {par['phase_s']:.1f} s; whole run "
+        f"{load['phase_s']:.1f} s; parallel phase {par['phase_s']:.1f} s; evals phase "
+        f"{ev['phase_s']:.1f} s (the STA gate {ev['validate_weights']['seconds']:.1f} s); "
+        f"whole run "
         f"{time.perf_counter() - t_start:.0f} s; card {card}")
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
              "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
              "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts,
              "sample_cli_long": long_counts, "sample_cli_load": load_counts,
-             **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts}
+             **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts,
+             "validate_weights": eval_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

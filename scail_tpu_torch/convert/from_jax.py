@@ -122,3 +122,88 @@ def ema_adam_state_from_jax(state):
                         exp_avg=dit_state_dict_from_jax(state.exp_avg),
                         exp_avg_sq=dit_state_dict_from_jax(state.exp_avg_sq),
                         shadow=dit_state_dict_from_jax(state.shadow))
+
+
+_BN_NAMES = {"scale": "weight", "bias": "bias", "mean": "running_mean", "var": "running_var"}
+
+
+def i3d_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_i3d_params` / `i3d_params_from_state_dict` pytree ->
+    `InceptionI3d.state_dict()` (pytorch_i3d names): conv3d kernels to
+    (out, in, kt, kh, kw), bn/{scale, bias, mean, var} to BatchNorm's names."""
+    sd = {}
+    for path, arr in _flatten(params):
+        parts = path.split("/")
+        if parts[-2] == "bn":
+            key, val = ".".join(parts[:-1] + [_BN_NAMES[parts[-1]]]), arr
+        else:
+            key, val = _conv_leaf(path, arr)
+        sd[key] = _tensor(val)
+    return sd
+
+
+def inception_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_inception_params` / `inception_params_from_state_dict` pytree ->
+    `FIDInceptionV3.state_dict()` (pytorch-fid names): each unit's kernel to
+    <unit>.conv.weight (out, in, kh, kw), its scale / bias / mean / var to
+    <unit>.bn.*."""
+    sd = {}
+    for path, arr in _flatten(params):
+        parts = path.split("/")
+        stem, leaf = ".".join(parts[:-1]), parts[-1]
+        if leaf == "kernel":
+            sd[f"{stem}.conv.weight"] = _tensor(arr.transpose(3, 2, 0, 1))
+        else:
+            sd[f"{stem}.bn.{_BN_NAMES[leaf]}"] = _tensor(arr)
+    return sd
+
+
+def lpips_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_lpips_params` / `lpips_params_from_torch` pytree ->
+    `LPIPS.state_dict()`: convs[i] to torchvision's features.N (the kernel is
+    in torch's layout already), lins[k] (C,) to linK.model.1.weight (1, C, 1, 1)."""
+    from scail_tpu_torch.evals.lpips import VGG_CONVS
+
+    sd = {}
+    for idx, conv in zip(VGG_CONVS, params["convs"]):
+        sd[f"features.{idx}.weight"] = _tensor(np.asarray(conv["kernel"]))
+        sd[f"features.{idx}.bias"] = _tensor(np.asarray(conv["bias"]))
+    for k, lin in enumerate(params["lins"]):
+        sd[f"lin{k}.model.1.weight"] = _tensor(np.asarray(lin).reshape(1, -1, 1, 1))
+    return sd
+
+
+_CLIP_LAYER_NAMES = {"ln1": "layer_norm1", "ln2": "layer_norm2", "q": "self_attn.q_proj",
+                     "k": "self_attn.k_proj", "v": "self_attn.v_proj",
+                     "out": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def clip_score_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_clip_params` / `clip_params_from_*` pytree ->
+    `ClipScoreModel.state_dict()` (HF CLIPModel names): stacked (L, ...)
+    layers split per layer, (in, out) kernels transposed, LayerNorm scales
+    to `weight`, the patch kernel to (width, 3, p, p)."""
+    sd = {}
+    v, t = params["vision"], params["text"]
+    for tree, name in ((v, "vision_model"), (t, "text_model")):
+        for part, leaves in tree["layers"].items():
+            for leaf, arr in leaves.items():
+                arr = np.asarray(arr)
+                for i in range(arr.shape[0]):
+                    key = f"{name}.encoder.layers.{i}.{_CLIP_LAYER_NAMES[part]}."
+                    sd[key + ("bias" if leaf == "bias" else "weight")] = _tensor(
+                        arr[i].T if leaf == "kernel" else arr[i])
+    for dst, src in (("vision_model.pre_layrnorm", v["pre_ln"]),
+                     ("vision_model.post_layernorm", v["post_ln"]),
+                     ("text_model.final_layer_norm", t["final_ln"])):
+        sd[dst + ".weight"], sd[dst + ".bias"] = _tensor(src["scale"]), _tensor(src["bias"])
+    emb = "vision_model.embeddings."
+    sd[emb + "class_embedding"] = _tensor(v["class_embedding"])
+    sd[emb + "patch_embedding.weight"] = _tensor(
+        np.asarray(v["patch_embedding"]["kernel"]).transpose(3, 2, 0, 1))
+    sd[emb + "position_embedding.weight"] = _tensor(v["position_embedding"])
+    sd["text_model.embeddings.token_embedding.weight"] = _tensor(t["token_embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = _tensor(t["position_embedding"])
+    sd["visual_projection.weight"] = _tensor(np.asarray(params["visual_projection"]["kernel"]).T)
+    sd["text_projection.weight"] = _tensor(np.asarray(params["text_projection"]["kernel"]).T)
+    return sd

@@ -38,14 +38,19 @@ def load_gif_frames(path: str):
     return np.stack(frames), (1000.0 / duration if duration else 16.0)
 
 
-def _load_frame_dir(path: str) -> np.ndarray:
+def load_image_dir(path: str) -> list:
+    """The .png / .jpg / .jpeg images of a directory, sorted by name, as RGB
+    PIL images; an empty directory raises."""
     from PIL import Image
 
     names = sorted(f for f in os.listdir(path) if f.lower().endswith((".png", ".jpg", ".jpeg")))
     if not names:
         raise FileNotFoundError(f"no frames in {path}")
-    return np.stack([np.asarray(Image.open(os.path.join(path, n)).convert("RGB"))
-                     for n in names])
+    return [Image.open(os.path.join(path, n)).convert("RGB") for n in names]
+
+
+def _load_frame_dir(path: str) -> np.ndarray:
+    return np.stack([np.asarray(im) for im in load_image_dir(path)])
 
 
 def load_video_frames(path: str) -> Tuple[np.ndarray, float]:

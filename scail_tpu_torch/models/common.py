@@ -43,6 +43,11 @@ def silu(x):
     return F.silu(x)
 
 
+def quick_gelu(x):
+    """x * sigmoid(1.702 x): the activation of openai CLIP (ViT-L/14)."""
+    return x * torch.sigmoid(1.702 * x)
+
+
 def timestep_embedding(timesteps, dim: int, max_period: float = 10000.0,
                        dtype=torch.float32):
     """Sinusoidal embedding in [cos | sin] order (cos first)."""
