@@ -136,6 +136,30 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  and 9 frames (where the sliding tiles divide the latent):
                  both sampling passes, FVD of each against GT, the CLIP score,
                  the report; exactly 2 forwards' launches in each pass.
+  12. image   -- the SD-family image path (inference/, models/unet.py,
+                 autoencoding/, diffusion/embedders.py) in f32 with TF32 off,
+                 random weights from seeds: (a) SamplingPipeline(SDXL_V1_BASE)
+                 builds the 2.57 B UNet, both text towers at full depth and
+                 the KL VAE on the card; text_to_image at 1024 x 1024, CFG 5, 2
+                 steps under each of the six Sampler values on the LegacyDDPM
+                 ladder and DPMPP2M on the EDM ladder: a finite (1, 1024,
+                 1024, 3) image in [0, 1] and exactly the UNet forwards of
+                 UNET_FORWARDS; seconds and peak GB of each; the UNet forward
+                 at CFG batch 2, the VAE decode and each text tower timed.
+                 (b) image_to_image at strength 0.5 on (a)'s image; the base
+                 freed, SamplingPipeline(SDXL_V1_REFINER) and `refiner` on
+                 (a)'s latent.  (c) card against CPU from one state dict:
+                 the SDXL UNet with every transformer depth 1 on a 32 x 32
+                 latent, the VAE on a 256 x 256 image, both towers at 2
+                 layers, relative L2 <= 1e-4.  (d) the 1.3B DiT at full width
+                 and depth through VideoDiffusionEngine.sample with the zoo's
+                 DPMPP2MSampler over EDMDiscretization and VanillaCFG, 2 steps:
+                 exactly 60 K1 + 60 K3 + 122 K9 + 60 K10, a finite latent.
+                 (e) one PD distillation step (PDDiffusionLoss, VideoScaling)
+                 with a 2-layer 1.3B-width student carrying cfg_embed and a
+                 teacher alike at 48,832 tokens, its backward and exact
+                 launches; TASDLoss and TASDLossRF on a plain torch network,
+                 card against CPU within 1e-5.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -147,8 +171,9 @@ The line before the last is {"kernels": [...]}: per kernel its launches on the
 main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
 train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
 phases 7, 7b and 8, the --load request of phase 9, the two ranks of phase
-10 (their runs summed) and the two sampling passes of validate_weights in
-phase 11, each counted from 0, and their sum), its largest
+10 (their runs summed), the two sampling passes of validate_weights in
+phase 11, and phase 12's DiT under DPMPP2MSampler and its PD step, each
+counted from 0, and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
 larger of bytes moved over 3.35 TB/s and
@@ -3377,6 +3402,434 @@ def phase_evals(dense_clip, sta_clip):
     return counts, stats
 
 
+# phase 12: the SD-family image path (inference/, models/unet.py,
+# autoencoding/, diffusion/embedders.py and the EDM-era sampler zoo) at SDXL
+# base's full width on random weights from seeds, f32 with TF32 off; then the
+# zoo over the DiT and one PD distillation step on the kernels
+IMAGE_STEPS = 2
+IMAGE_SIZE = 1024
+IMAGE_SCALE = 5.0
+# UNet forwards (each at CFG batch 2) of a sampler at n steps into sigma 0:
+# Heun and DPM++ 2S make a second call a step, but not into sigma 0
+UNET_FORWARDS = {"EulerEDMSampler": lambda n: n, "HeunEDMSampler": lambda n: 2 * n - 1,
+                 "EulerAncestralSampler": lambda n: n,
+                 "DPMPP2SAncestralSampler": lambda n: 2 * n - 1,
+                 "DPMPP2MSampler": lambda n: n, "LinearMultistepSampler": lambda n: n}
+# card against CPU, per module, relative L2 (f32 both sides)
+IMAGE_REL_TOL = 1e-4
+# the TASD losses on the card against the CPU
+TASD_REL_TOL = 1e-5
+PD_LAYERS = 2
+
+
+def _counted_unet(net):
+    """A list that gets the batch of every UNet forward."""
+    calls = []
+    net.register_forward_pre_hook(lambda m, args: calls.append(args[0].shape[0]))
+    return calls
+
+
+def _image_checks(label, out, shape):
+    import torch
+
+    if tuple(out.shape) != shape or not torch.isfinite(out).all() or \
+            not (0.0 <= float(out.min()) and float(out.max()) <= 1.0):
+        fail(f"image: {label} gave {tuple(out.shape)}, finite {bool(torch.isfinite(out).all())}, "
+             f"range [{float(out.min())}, {float(out.max())}]; expected {shape} in [0, 1]")
+
+
+def _image_sampling(stats):
+    """(a) SDXL base at 1024 x 1024 under all six samplers; the UNet, decode
+    and text-tower times.  Returns the pipeline, the first image and latent."""
+    import torch
+
+    from scail_tpu_torch.inference.api import (Discretization, ModelArchitecture, Sampler,
+                                               SamplingParams, SamplingPipeline)
+
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    pipe = SamplingPipeline(ModelArchitecture.SDXL_V1_BASE,
+                            model_path=os.path.join(WORK, "no_checkpoints"), device="cuda", seed=0)
+    torch.cuda.synchronize()
+    model = pipe.model
+    n_unet = sum(p.numel() for p in model.network.parameters())
+    towers = model.text_embedders()
+    stats["base"] = {"build_s": time.perf_counter() - t0, "unet_params": n_unet,
+                     "tower_params": [sum(p.numel() for p in e.model.parameters()) for e in towers],
+                     "vae_params": sum(p.numel() for p in model.first_stage_model.parameters()),
+                     "build_peak_gb": torch.cuda.max_memory_allocated() / 1e9}
+    calls = _counted_unet(model.network)
+    runs = [(s, Discretization.LEGACY_DDPM) for s in Sampler] + [
+        (Sampler.DPMPP2M, Discretization.EDM)]
+    first = None
+    stats["samplers"] = {}
+    for sampler, disc in runs:
+        params = SamplingParams(width=IMAGE_SIZE, height=IMAGE_SIZE, steps=IMAGE_STEPS,
+                                sampler=sampler, discretization=disc, scale=IMAGE_SCALE)
+        label = f"{sampler.value} ({disc.value})"
+        calls.clear()
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        t0 = time.perf_counter()
+        out, lat = pipe.text_to_image(params, "a lighthouse on a cliff at dawn, oil painting",
+                                      negative_prompt="blurry", samples=1, return_latents=True)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        peak = torch.cuda.max_memory_allocated() / 1e9
+        _image_checks(label, out, (1, IMAGE_SIZE, IMAGE_SIZE, 3))
+        want = [2] * UNET_FORWARDS[sampler.value](IMAGE_STEPS)
+        if calls != want:
+            fail(f"image: {label}: UNet forwards {calls}, expected {want}")
+        stats["samplers"][label] = {"s": secs, "peak_gb": peak, "unet_forwards": len(calls)}
+        log(f"image: SDXL base {label}, {IMAGE_STEPS} steps at {IMAGE_SIZE}^2, CFG {IMAGE_SCALE}: "
+            f"{secs:.2f} s, peak {peak:.2f} GB, {len(calls)} UNet forwards at CFG batch 2")
+        if first is None:
+            first = (out, lat)
+
+    with torch.no_grad():
+        g = torch.Generator(device="cuda").manual_seed(5)
+        side = IMAGE_SIZE // 8
+        x = torch.randn((2, 4, side, side), generator=g, device="cuda")
+        t = torch.full((2,), 500, device="cuda")
+        ctx = torch.randn((2, 77, 2048), generator=g, device="cuda")
+        y = torch.randn((2, 2816), generator=g, device="cuda")
+        stats["unet_ms_cfg2"] = timed_ms(lambda: model.network(x, t, ctx, y), iters=3)
+        z = torch.randn((1, 4, side, side), generator=g, device="cuda")
+        torch.cuda.reset_peak_memory_stats()
+        stats["vae_decode_ms"] = timed_ms(lambda: model.decode_first_stage(z), iters=2)
+        stats["vae_decode_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        stats["tower_ms"] = [timed_ms(lambda e=e: e(["a lighthouse on a cliff at dawn"]), iters=3)
+                             for e in towers]
+    calls.clear()
+    log(f"image: SDXL base UNet {n_unet / 1e9:.3f} B parameters, towers "
+        f"{[round(n / 1e9, 3) for n in stats['base']['tower_params']]} B, VAE "
+        f"{stats['base']['vae_params'] / 1e6:.1f} M, built in {stats['base']['build_s']:.1f} s; "
+        f"UNet forward at CFG batch 2 ({side}x{side} latent) {stats['unet_ms_cfg2']:.1f} ms, VAE "
+        f"decode {stats['vae_decode_ms']:.1f} ms (peak {stats['vae_decode_peak_gb']:.2f} GB), "
+        f"text towers {[round(m, 2) for m in stats['tower_ms']]} ms a prompt")
+    return pipe, first
+
+
+def _image_img2img_and_refiner(held, stats):
+    """(b) image_to_image at strength 0.5 on (a)'s first image; then, the base
+    freed (`held` gives up the last reference), the refiner on (a)'s latent."""
+    import torch
+
+    from scail_tpu_torch.inference.api import ModelArchitecture, SamplingParams, SamplingPipeline
+
+    pipe = held.pop("pipe")
+    image, latent = held.pop("first")
+    params = SamplingParams(width=IMAGE_SIZE, height=IMAGE_SIZE, steps=IMAGE_STEPS,
+                            scale=IMAGE_SCALE, img2img_strength=0.5)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = pipe.image_to_image(params, image * 2.0 - 1.0, "a lighthouse on a cliff, watercolour")
+    torch.cuda.synchronize()
+    stats["img2img_s"] = time.perf_counter() - t0
+    _image_checks("image_to_image", out, (1, IMAGE_SIZE, IMAGE_SIZE, 3))
+    del pipe, out
+    _free_card()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ref = SamplingPipeline(ModelArchitecture.SDXL_V1_REFINER,
+                           model_path=os.path.join(WORK, "no_checkpoints"), device="cuda", seed=1)
+    torch.cuda.synchronize()
+    stats["refiner_build_s"] = time.perf_counter() - t0
+    stats["refiner_unet_params"] = sum(p.numel() for p in ref.model.network.parameters())
+    calls = _counted_unet(ref.model.network)
+    t0 = time.perf_counter()
+    out = ref.refiner(SamplingParams(width=IMAGE_SIZE, height=IMAGE_SIZE, steps=IMAGE_STEPS,
+                                     scale=IMAGE_SCALE), latent, "a lighthouse on a cliff")
+    torch.cuda.synchronize()
+    stats["refiner_s"] = time.perf_counter() - t0
+    stats["refiner_peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    _image_checks("refiner", out, (1, IMAGE_SIZE, IMAGE_SIZE, 3))
+    if calls != [2] * IMAGE_STEPS:
+        fail(f"image: refiner UNet forwards {calls}, expected {[2] * IMAGE_STEPS}")
+    log(f"image: image_to_image (strength 0.5) {stats['img2img_s']:.2f} s; refiner (UNet "
+        f"{stats['refiner_unet_params'] / 1e9:.3f} B parameters, built in "
+        f"{stats['refiner_build_s']:.1f} s) {stats['refiner_s']:.2f} s, peak "
+        f"{stats['refiner_peak_gb']:.2f} GB")
+    del ref, out
+    _free_card()
+
+
+def _image_card_vs_cpu(stats):
+    """(c) each module on the card and on the CPU from one state dict: the
+    SDXL UNet at its widths with every transformer depth 1 on a 32 x 32
+    latent, the VAE at its widths on a 256 x 256 image, both text towers at 2
+    layers."""
+    import copy
+    import dataclasses
+
+    import torch
+    import yaml
+
+    from scail_tpu_torch.autoencoding.autoencoder_kl import AutoencoderKLModeOnly
+    from scail_tpu_torch.diffusion.embedders import ClipTextTower
+    from scail_tpu_torch.models.unet import UNetModel
+    from scail_tpu_torch.utils.registry import instantiate_from_config
+
+    with open(os.path.join(ROOT, "configs", "inference", "sd_xl_base.yaml")) as f:
+        model = yaml.safe_load(f)["model"]["params"]
+    rel = {}
+    g = torch.Generator(device="cuda").manual_seed(7)
+
+    def both(label, card, cpu, *inputs):
+        with torch.no_grad():
+            got = card(*(t.cuda() for t in inputs)).cpu()
+            want = cpu(*inputs)
+        rel[label] = _card_vs_cpu_rel(label, got, want)
+
+    unet_p = dict(model["network_config"]["params"], transformer_depth=1)
+    card = UNetModel(**unet_p, device="cuda").init_random_(g, zero_modules=False)
+    cpu = UNetModel(**unet_p)
+    cpu.load_state_dict(card.state_dict())
+    gc = torch.Generator().manual_seed(8)
+    both("UNet (SDXL widths, depth 1, 32x32 latent)", card, cpu,
+         torch.randn((1, 4, 32, 32), generator=gc), torch.tensor([421.0]),
+         torch.randn((1, 77, 2048), generator=gc), torch.randn((1, 2816), generator=gc))
+    del card, cpu
+    _free_card()
+
+    vae_cfg = model["first_stage_config"]["params"]
+    card = AutoencoderKLModeOnly(**vae_cfg, device="cuda").init_random_(g)
+    cpu = AutoencoderKLModeOnly(**vae_cfg)
+    cpu.load_state_dict(card.state_dict())
+    img = torch.rand((1, 3, 256, 256), generator=gc) * 2 - 1
+    both("VAE encode (256x256)", card.encode, cpu.encode, img)
+    both("VAE decode (32x32 latent)", card.decode, cpu.decode,
+         torch.randn((1, 4, 32, 32), generator=gc))
+    del card, cpu
+    _free_card()
+
+    cond = instantiate_from_config(model["conditioner_config"])
+    for emb in cond.embedders[:2]:  # CLIP-L (hidden) and OpenCLIP bigG (penultimate, pooled)
+        emb.cfg = dataclasses.replace(emb.cfg, text_layers=2)
+        if emb.layer == "hidden":
+            emb.layer_idx = 1
+        emb.model = ClipTextTower(emb.cfg, emb.with_projection, device="meta")
+        emb.init(g, device="cuda")
+        cpu = copy.copy(emb)
+        cpu.model = ClipTextTower(emb.cfg, emb.with_projection)
+        cpu.model.load_state_dict(emb.model.state_dict())
+        prompts = ["a lighthouse on a cliff at dawn", ""]
+        got, want = emb(prompts), cpu(prompts)
+        got, want = (got if isinstance(got, tuple) else (got,)), \
+            (want if isinstance(want, tuple) else (want,))
+        for i, (a, b) in enumerate(zip(got, want)):
+            label = f"{type(emb).__name__} output {i} (2 layers)"
+            rel[label] = _card_vs_cpu_rel(label, a.cpu(), b)
+    stats["card_vs_cpu_rel_l2"] = rel
+    _free_card()
+
+
+def _card_vs_cpu_rel(label, got, want):
+    import torch
+
+    r = _rel_l2(got.float(), want.float())
+    log(f"image: {label}: card vs CPU relative L2 {r:.3e} (tol {IMAGE_REL_TOL:.0e})")
+    if not (torch.isfinite(got).all() and r <= IMAGE_REL_TOL):
+        fail(f"image: {label} on the card disagrees with the CPU ({r:.3e})")
+    return r
+
+
+def _image_dit_zoo(stats):
+    """(d) the 1.3B DiT at full width and depth under the zoo's DPMPP2MSampler
+    over EDMDiscretization with VanillaCFG, in-process through
+    VideoDiffusionEngine.sample, 2 steps at 48,832 tokens."""
+    import torch
+
+    from scail_tpu_torch.engine import VideoDiffusionEngine
+    from scail_tpu_torch.utils.config import load_configs, split_reference_config
+
+    base = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
+    mc = dict(split_reference_config(load_configs([base]))[1])
+    for key in ("first_stage_config", "i2v_clip_config", "conditioner_config", "loss_fn_config"):
+        mc.pop(key, None)  # sampling from given conditioning needs the DiT only
+    d = "sgm.modules.diffusionmodules."
+    mc["sampler_config"] = {"target": d + "sampling.DPMPP2MSampler", "params": {
+        "num_steps": IMAGE_STEPS,
+        "guider_config": {"target": d + "guiders.VanillaCFG", "params": {"scale": 5.0}},
+        # sigma_max 1: the RF DiT's c_noise (sigma * 1000) stays in its range
+        "discretization_config": {"target": d + "discretizer.EDMDiscretization",
+                                  "params": {"sigma_min": 0.002, "sigma_max": 1.0}}}}
+    eng = VideoDiffusionEngine(mc, {"bf16": True}, device="cuda")
+    g = torch.Generator(device="cuda").manual_seed(9)
+    eng.init_params(g)
+    cfg = eng.network.config
+    assert (cfg.hidden_size, cfg.num_layers) == (1536, 30), cfg
+    inp = _dit_inputs(g, 21, 64, 112)
+    cond = {k: inp[k][:1] for k in ("ref_concat", "concat_smpl_render", "image_clip_features")}
+    cond["crossattn"] = inp["context"][:1]
+    uc = dict(cond, crossattn=torch.zeros_like(cond["crossattn"]))
+    torch.cuda.synchronize()
+    reset_counts()
+    t0 = time.perf_counter()
+    lat = eng.sample(g, cond, uc, batch_size=1, shape=(21, 16, 64, 112))
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    _exact(counts, {k: 2 * v for k, v in DIT_LAUNCHES.items()},
+           "the DiT under DPMPP2MSampler, 2 steps")
+    if tuple(lat.shape) != (1, 21, 16, 64, 112) or not torch.isfinite(lat.float()).all():
+        fail(f"image: the DiT zoo latent {tuple(lat.shape)} not finite")
+    stats["dit_zoo"] = {"s": secs, "launches": {k: v for k, v in counts.items() if v}}
+    log(f"image: 1.3B DiT under DPMPP2MSampler (EDM ladder, VanillaCFG), 2 steps at CFG batch "
+        f"2, 48,832 tokens: {secs:.2f} s; launches {stats['dit_zoo']['launches']}")
+    del eng, lat, inp
+    _free_card()
+    return counts
+
+
+def _pd_dit(g, trainable):
+    import torch
+    import yaml
+
+    from scail_tpu_torch.utils.registry import instantiate_from_config
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
+        nc = yaml.safe_load(f)["model"]["network_config"]
+    nc["params"].update(dtype="bf16", use_i2v_clip=True, num_layers=PD_LAYERS,
+                        cfg_embed_dim=nc["params"]["time_embed_dim"])
+    dit = instantiate_from_config(nc).build("meta")
+    if trainable:  # f32 parameters, bf16 compute, as the trainer holds them
+        dit.init_weights_(g, device=torch.device("cuda"))
+        return dit.requires_grad_(True).train()
+    dit.init_weights_(g, device=torch.device("cuda"), dtype=torch.bfloat16)
+    return dit.eval()
+
+
+def _image_pd_and_tasd(stats):
+    """(e) one PD distillation step (PDDiffusionLoss over the zero-SNR ladder,
+    a Denoiser of VideoScaling and UnitWeighting) with a 2-layer 1.3B-width
+    student carrying cfg_embed and a second such DiT as the teacher, at
+    48,832 tokens; its loss, backward and exact launches.  Then TASDLoss and
+    TASDLossRF on a plain torch network, card against CPU."""
+    import torch
+
+    from scail_tpu_torch.utils.registry import instantiate_from_config
+
+    d = "sgm.modules.diffusionmodules."
+    zero_snr = {"target": d + "discretizer.ZeroSNRDDPMDiscretization"}
+    loss = instantiate_from_config({"target": d + "loss.PDDiffusionLoss",
+                                    "params": {"discretization_config": zero_snr}})
+    den = instantiate_from_config({"target": d + "denoiser.Denoiser", "params": {
+        "weighting_config": {"target": d + "denoiser_weighting.UnitWeighting"},
+        "scaling_config": {"target": d + "denoiser_scaling.VideoScaling"}}})
+    g = torch.Generator(device="cuda").manual_seed(10)
+    student, teacher = _pd_dit(g, True), _pd_dit(g, False)
+    inp = _dit_inputs(g, 21, 64, 112)
+    cond = {k: inp[k][:1] for k in ("ref_concat", "concat_smpl_render", "image_clip_features")}
+    cond["crossattn"] = inp["context"][:1]
+    latent = inp["x"][:1].float()
+
+    def net(dit):
+        def fn(x, c_noise, c, **kw):
+            return dit(x, c_noise, c["crossattn"], ref_concat=c["ref_concat"],
+                       concat_smpl_render=c["concat_smpl_render"],
+                       image_clip_features=c["image_clip_features"], cfg_scale=kw.get("cfg_scale"))
+        return fn
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    t0 = time.perf_counter()
+    value = loss(g, net(student), den, cond, latent, teacher_fn=net(teacher)).mean()
+    value.backward()
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = launch_counts()
+    L = PD_LAYERS
+    # the student's step with remat (the YAML's checkpoint_activations), as a
+    # training step of L layers; the teacher's two forwards under no_grad
+    want = {"flash_attention_rope": 2 * L + 2 * L, "dual_cross_attention": 2 * L + 2 * L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+            "adaln_layer_norm": (4 * L + 1) + 2 * (2 * L + 1), "rotary": 3 * L + 2 * L}
+    _exact(counts, want, "the PD step")
+    grads = [p.grad for p in student.parameters() if p.grad is not None]
+    if not (torch.isfinite(value) and grads and all(torch.isfinite(gr).all() for gr in grads)):
+        fail(f"image: PD step loss {value.item()} or its gradients not finite")
+    stats["pd_step"] = {"s": secs, "loss": value.item(), "peak_gb":
+                        torch.cuda.max_memory_allocated() / 1e9,
+                        "launches": {k: v for k, v in counts.items() if v}}
+    log(f"image: PD step ({L}-layer 1.3B-width student with cfg_embed, teacher alike, 48,832 "
+        f"tokens): loss {value.item():.6f}, {secs:.2f} s, peak {stats['pd_step']['peak_gb']:.2f} "
+        f"GB; launches {stats['pd_step']['launches']}")
+    del student, teacher, inp, latent, value, grads
+    _free_card()
+
+    # the TASD losses on a plain torch network, the same draws on both devices
+    tasd = instantiate_from_config({"target": d + "loss.TASDLoss", "params": {
+        "sigma_sampler_config": {"target": d + "sigma_sampling.DiscreteSampling",
+                                 "params": {"discretization_config": zero_snr}}}})
+    tasd_den = instantiate_from_config({"target": d + "denoiser.DiscreteDenoiser_TASD", "params": {
+        "num_idx": 1000, "quantize_c_noise": False, "discretization_config": zero_snr,
+        "weighting_config": {"target": d + "denoiser_weighting.UnitWeighting"},
+        "scaling_config": {"target": d + "denoiser_scaling.VideoScaling"}}})
+    rf = instantiate_from_config({"target": d + "loss.TASDLoss_RF", "params": {
+        "schedule_shift": True,
+        "sigma_sampler_config": {"target": d + "sigma_sampling.RFSampling"}}})
+    rf_den = instantiate_from_config({"target": d + "denoiser.Denoiser", "params": {
+        "weighting_config": {"target": d + "denoiser_weighting.EpsWeighting"},
+        "scaling_config": {"target": d + "denoiser_scaling.RFScaling"}}})
+    gc = torch.Generator().manual_seed(11)
+    x = torch.randn((2, 3, 16, 64, 64), generator=gc)
+    noise = torch.randn(x.shape, generator=gc)
+    idx = torch.randint(1, 999, (2, 3), generator=gc)
+    t_idx = torch.rand((2, 3), generator=gc) * 0.9 + 0.05
+    w = torch.randn((16, 16), generator=gc) / 4
+
+    def plain_net(xin, c_noise, c, rope_position_ids=None, **kw):
+        h = torch.einsum("btchw,dc->btdhw", xin, w.to(xin.device))
+        shape = c_noise.shape + (1,) * (xin.dim() - c_noise.dim())
+        return torch.tanh(h) + 1e-3 * c_noise.reshape(shape).float() + 1e-4 * \
+            rope_position_ids.float().mean()
+
+    vals = {}
+    for dev in ("cuda", "cpu"):
+        def on(t):
+            return t.to(dev)
+        vals[dev] = (
+            tasd(None, plain_net, tasd_den, {}, on(x), noise=on(noise), alphas_idx=on(idx)),
+            rf(None, plain_net, rf_den, {}, on(x), noise=on(noise), t_indices=on(t_idx)))
+    for name, a, b in zip(("TASDLoss", "TASDLossRF"), vals["cuda"], vals["cpu"]):
+        r = _rel_l2(a.cpu().float(), b.float())
+        log(f"image: {name} card {a.cpu().tolist()} vs CPU {b.tolist()}: relative {r:.3e} "
+            f"(tol {TASD_REL_TOL:.0e})")
+        if not r <= TASD_REL_TOL:
+            fail(f"image: {name} on the card disagrees with the CPU ({r:.3e})")
+        stats[f"{name}_rel"] = r
+    return counts
+
+
+def phase_image():
+    """Phase 12: the image path at SDXL base's full width, then the zoo over
+    the DiT and the PD / TASD losses.  Returns the DiT zoo's and the PD
+    step's launches and the phase's record."""
+    t_phase = time.perf_counter()
+    stats = {"seconds": {}}
+    t0 = time.perf_counter()
+    pipe, first = _image_sampling(stats)
+    held = {"pipe": pipe, "first": first}
+    del pipe, first
+    t1 = time.perf_counter()
+    _image_img2img_and_refiner(held, stats)
+    t2 = time.perf_counter()
+    _image_card_vs_cpu(stats)
+    t3 = time.perf_counter()
+    zoo_counts = _image_dit_zoo(stats)
+    t4 = time.perf_counter()
+    pd_counts = _image_pd_and_tasd(stats)
+    stats["seconds"].update(sampling=t1 - t0, img2img_refiner=t2 - t1, card_vs_cpu=t3 - t2,
+                            dit_zoo=t4 - t3, pd_tasd=time.perf_counter() - t4)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 12 (image): {stats['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stats["seconds"].items()) + ")")
+    print(json.dumps({"image": stats}), flush=True)
+    return zoo_counts, pd_counts, stats
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -3402,6 +3855,7 @@ def main():
     load_counts, load = phase_load(ex81)
     parallel_counts, par = phase_parallel(ex81)
     eval_counts, ev = phase_evals(records[1]["outputs"][0], sta_record["outputs"][0])
+    zoo_counts, pd_counts, image = phase_image()
 
     import torch
 
@@ -3426,7 +3880,9 @@ def main():
                              for r in load["loads"])
         + f", load peak {load['peak_gb']:.3f} GB for {load['dit_gb']:.3f} GB of DiT, phase "
         f"{load['phase_s']:.1f} s; parallel phase {par['phase_s']:.1f} s; evals phase "
-        f"{ev['phase_s']:.1f} s (the STA gate {ev['validate_weights']['seconds']:.1f} s); "
+        f"{ev['phase_s']:.1f} s (the STA gate {ev['validate_weights']['seconds']:.1f} s); image "
+        f"phase {image['phase_s']:.1f} s (SDXL UNet forward at CFG batch 2 "
+        f"{image['unet_ms_cfg2']:.1f} ms, decode {image['vae_decode_ms']:.1f} ms); "
         f"whole run "
         f"{time.perf_counter() - t_start:.0f} s; card {card}")
 
@@ -3435,7 +3891,8 @@ def main():
              "dit14b_w8": w8_counts, "e2e_14b_w4": w4_counts, "sample_cli_14b_int8": int8_counts,
              "sample_cli_long": long_counts, "sample_cli_load": load_counts,
              **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts,
-             "validate_weights": eval_counts}
+             "validate_weights": eval_counts, "dit_zoo_dpmpp2m": zoo_counts,
+             "pd_step": pd_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

@@ -173,9 +173,120 @@ def lpips_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     return sd
 
 
+def _tree_paths(tree, prefix=""):
+    """(path, array) of every leaf of nested dicts and lists (list items by
+    index)."""
+    items = tree.items() if isinstance(tree, dict) else enumerate(tree)
+    for k, v in items:
+        path = f"{prefix}/{k}" if prefix else str(k)
+        if isinstance(v, (dict, list, tuple)):
+            yield from _tree_paths(v, path)
+        else:
+            yield path, np.asarray(v)
+
+
+def _torch_layout(leaf: str, arr: np.ndarray) -> Tuple[str, np.ndarray]:
+    """A kernel to torch's layout: (in, out) -> (out, in); (k, in, out) and
+    (kh, kw, in, out) -> (out, in, *k).  scale and embedding become weight."""
+    if leaf == "kernel":
+        nk = arr.ndim - 2
+        arr = arr.T if nk == 0 else arr.transpose(nk + 1, nk, *range(nk))
+        return "weight", arr
+    return ("weight" if leaf in ("scale", "embedding") else leaf), arr
+
+
+# JAX UNet tree names -> the reference's module names, per path component
+_UNET_PARTS = {"in_norm": "in_layers.0", "in_conv": "in_layers.2", "out_norm": "out_layers.0",
+               "out_conv": "out_layers.3", "emb": "emb_layers.1", "skip": "skip_connection",
+               "blocks": "transformer_blocks", "to_out": "to_out.0"}
+
+
+def unet_state_dict_from_jax(params, num_classes=None) -> Dict[str, torch.Tensor]:
+    """`UNetModel.init` / `unet_params_from_torch` pytree -> the port's
+    `UNetModel.state_dict()` (openaimodel names); `num_classes` as the
+    model's (its 'timestep' MLP sits at label_emb.1, 'sequential' at
+    label_emb.0)."""
+    seq = 1 if num_classes == "timestep" else 0
+    label = {"0": f"label_emb.{seq}.0", "1": f"label_emb.{seq}.2"}
+    sd = {}
+    for path, arr in _tree_paths(params):
+        parts = path.split("/")
+        head, rest = parts[0], parts[1:-1]
+        if head == "time_embed":
+            stem = f"time_embed.{2 * int(rest[0])}"
+        elif head in ("out_norm", "out_conv"):
+            stem = "out.0" if head == "out_norm" else "out.2"
+        elif head == "label_emb":
+            # int classes: label_emb/embedding; continuous: a linear;
+            # timestep / sequential: [linear, linear]
+            stem = label[rest[0]] if rest else "label_emb"
+        else:
+            blocks = {"input": "input_blocks", "middle": "middle_block",
+                      "output": "output_blocks"}[head]
+            names = []
+            for i, c in enumerate(rest):
+                if c == "proj_in" and i and rest[i - 1] == "ff":
+                    names[-1:] = ["ff.net.0.proj"]
+                elif c == "proj_out" and i and rest[i - 1] == "ff":
+                    names[-1:] = ["ff.net.2"]
+                else:
+                    names.append(_UNET_PARTS.get(c, c))
+            stem = ".".join([blocks] + names)
+        leaf, val = _torch_layout(parts[-1], arr)
+        sd[f"{stem}.{leaf}"] = _tensor(val)
+    return sd
+
+
+def autoencoder_kl_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`AutoencoderKL.init_params` / `autoencoder_kl_params_from_torch` pytree
+    -> the port's `AutoencoderKL.state_dict()` (encoder.*, decoder.*,
+    quant_conv, post_quant_conv): a normalize's {norm: ...} to its own name,
+    downsample / upsample kernels to `.conv`."""
+    sd = {}
+    for path, arr in _tree_paths(params):
+        parts = path.split("/")
+        names = []
+        for i, c in enumerate(parts[:-1]):
+            if c == "norm" and i and parts[i - 1] in ("norm1", "norm2", "norm", "norm_out"):
+                continue
+            names.append(c + ".conv" if c in ("downsample", "upsample") else c)
+        leaf, val = _torch_layout(parts[-1], arr)
+        sd[".".join(names + [leaf])] = _tensor(val)
+    return sd
+
+
+def clip_text_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """The JAX embedders' text tower (`init_text_tower`, `text_params_from_hf`,
+    `text_params_from_open_clip`: text/{...} and, for open_clip,
+    text_projection) -> the port's `ClipTextTower.state_dict()`."""
+    sd = _clip_tower_from_jax(params["text"], "text_model")
+    t = params["text"]
+    sd["text_model.final_layer_norm.weight"] = _tensor(t["final_ln"]["scale"])
+    sd["text_model.final_layer_norm.bias"] = _tensor(t["final_ln"]["bias"])
+    sd["text_model.embeddings.token_embedding.weight"] = _tensor(t["token_embedding"])
+    sd["text_model.embeddings.position_embedding.weight"] = _tensor(t["position_embedding"])
+    if "text_projection" in params:
+        sd["text_projection.weight"] = _tensor(
+            np.asarray(params["text_projection"]["kernel"]).T)
+    return sd
+
+
 _CLIP_LAYER_NAMES = {"ln1": "layer_norm1", "ln2": "layer_norm2", "q": "self_attn.q_proj",
                      "k": "self_attn.k_proj", "v": "self_attn.v_proj",
                      "out": "self_attn.out_proj", "fc1": "mlp.fc1", "fc2": "mlp.fc2"}
+
+
+def _clip_tower_from_jax(tree, name) -> Dict[str, torch.Tensor]:
+    """A CLIP tower's stacked (L, ...) layers -> `{name}.encoder.layers.{i}.*`."""
+    sd = {}
+    for part, leaves in tree["layers"].items():
+        for leaf, arr in leaves.items():
+            arr = np.asarray(arr)
+            for i in range(arr.shape[0]):
+                key = f"{name}.encoder.layers.{i}.{_CLIP_LAYER_NAMES[part]}."
+                sd[key + ("bias" if leaf == "bias" else "weight")] = _tensor(
+                    arr[i].T if leaf == "kernel" else arr[i])
+    return sd
 
 
 def clip_score_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
@@ -183,16 +294,8 @@ def clip_score_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     `ClipScoreModel.state_dict()` (HF CLIPModel names): stacked (L, ...)
     layers split per layer, (in, out) kernels transposed, LayerNorm scales
     to `weight`, the patch kernel to (width, 3, p, p)."""
-    sd = {}
     v, t = params["vision"], params["text"]
-    for tree, name in ((v, "vision_model"), (t, "text_model")):
-        for part, leaves in tree["layers"].items():
-            for leaf, arr in leaves.items():
-                arr = np.asarray(arr)
-                for i in range(arr.shape[0]):
-                    key = f"{name}.encoder.layers.{i}.{_CLIP_LAYER_NAMES[part]}."
-                    sd[key + ("bias" if leaf == "bias" else "weight")] = _tensor(
-                        arr[i].T if leaf == "kernel" else arr[i])
+    sd = {**_clip_tower_from_jax(v, "vision_model"), **_clip_tower_from_jax(t, "text_model")}
     for dst, src in (("vision_model.pre_layrnorm", v["pre_ln"]),
                      ("vision_model.post_layernorm", v["post_ln"]),
                      ("text_model.final_layer_norm", t["final_ln"])):

@@ -234,12 +234,14 @@ class VideoDiffusionEngine:
     @torch.inference_mode()
     def sample(self, generator: torch.Generator, cond: Dict, uc: Optional[Dict] = None,
                batch_size: int = 1, shape: Tuple[int, int, int, int] = None, prefix=None,
-               tile_indices=None):
-        """Noise from `generator` (on the engine's device), then the sampler's
-        denoise loop (`tile_indices` goes to a tiled sampler, RFSamplerLong);
-        returns the latent in the DiT's compute dtype."""
-        randn = torch.randn((batch_size, *shape), generator=generator, device=self.device,
-                            dtype=torch.float32)
+               tile_indices=None, noise=None):
+        """Noise from `generator` (on the engine's device) unless given as
+        `noise`, then the sampler's denoise loop (`tile_indices` goes to a
+        tiled sampler, RFSamplerLong); returns the latent in the DiT's compute
+        dtype."""
+        randn = (torch.randn((batch_size, *shape), generator=generator, device=self.device,
+                             dtype=torch.float32) if noise is None
+                 else noise.to(self.device, torch.float32))
         if prefix is not None:
             randn = torch.cat([prefix, randn[:, prefix.shape[1]:]], dim=1)
         net = self.network_fn()

@@ -92,6 +92,24 @@ def _encoder(d, mlp, layers, device) -> nn.Module:
     return container(layers=nn.ModuleList([layer() for _ in range(layers)]))
 
 
+def encoder_block(cfg: ClipScoreConfig, x, p, nh, mask_bias=None):
+    """HF CLIPEncoderLayer: pre-LN attention + pre-LN MLP."""
+    b, s, d = x.shape
+    hd = d // nh
+    y = layer_norm(x, p.layer_norm1.weight, p.layer_norm1.bias, eps=cfg.eps)
+    a = p.self_attn
+    q, k, v = (dense(lin, y).reshape(b, s, nh, hd) for lin in (a.q_proj, a.k_proj, a.v_proj))
+    logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * (hd ** -0.5)
+    if mask_bias is not None:
+        logits = logits + mask_bias
+    probs = torch.softmax(logits, dim=-1).to(v.dtype)
+    o = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, d)
+    x = x + dense(a.out_proj, o)
+    y = layer_norm(x, p.layer_norm2.weight, p.layer_norm2.bias, eps=cfg.eps)
+    act = gelu_exact if cfg.hidden_act == "gelu" else quick_gelu
+    return x + dense(p.mlp.fc2, act(dense(p.mlp.fc1, y)))
+
+
 class ClipScoreModel(nn.Module):
     """Both towers and their projections; `image_embed` and `text_embed`
     return the unnormalised (b, embed_dim) embeddings."""
@@ -132,22 +150,7 @@ class ClipScoreModel(nn.Module):
         return self
 
     def _block(self, x, p, nh, mask_bias=None):
-        """HF CLIPEncoderLayer: pre-LN attention + pre-LN MLP."""
-        cfg = self.cfg
-        b, s, d = x.shape
-        hd = d // nh
-        y = layer_norm(x, p.layer_norm1.weight, p.layer_norm1.bias, eps=cfg.eps)
-        a = p.self_attn
-        q, k, v = (dense(lin, y).reshape(b, s, nh, hd) for lin in (a.q_proj, a.k_proj, a.v_proj))
-        logits = torch.einsum("bqnd,bknd->bnqk", q.float(), k.float()) * (hd ** -0.5)
-        if mask_bias is not None:
-            logits = logits + mask_bias
-        probs = torch.softmax(logits, dim=-1).to(v.dtype)
-        o = torch.einsum("bnqk,bknd->bqnd", probs, v).reshape(b, s, d)
-        x = x + dense(a.out_proj, o)
-        y = layer_norm(x, p.layer_norm2.weight, p.layer_norm2.bias, eps=cfg.eps)
-        act = gelu_exact if cfg.hidden_act == "gelu" else quick_gelu
-        return x + dense(p.mlp.fc2, act(dense(p.mlp.fc1, y)))
+        return encoder_block(self.cfg, x, p, nh, mask_bias)
 
     def image_embed(self, images):
         """images: (b, 3, H, W), CLIP-normalised -> (b, embed_dim)."""
@@ -194,6 +197,22 @@ def clip_state_dict_from_hf(sd: Mapping[str, torch.Tensor],
     return {k: sd[k] for k in model.state_dict()}
 
 
+def open_clip_tower(sd, out, src: str, dst: str, layers: int) -> None:
+    """Into `out`, under HF names, the `layers` blocks of the open_clip tower
+    at `src` (`transformer.resblocks.{i}`, fused attn.in_proj, ln_1 / ln_2,
+    mlp.c_fc / c_proj) as `{dst}.encoder.layers.{i}.*`."""
+    for i in range(layers):
+        s, d = f"{src}transformer.resblocks.{i}.", f"{dst}.encoder.layers.{i}."
+        for part, w, b in zip(("q_proj", "k_proj", "v_proj"),
+                              sd[s + "attn.in_proj_weight"].chunk(3, dim=0),
+                              sd[s + "attn.in_proj_bias"].chunk(3, dim=0)):
+            out[d + f"self_attn.{part}.weight"], out[d + f"self_attn.{part}.bias"] = w, b
+        for a, b in (("attn.out_proj", "self_attn.out_proj"), ("ln_1", "layer_norm1"),
+                     ("ln_2", "layer_norm2"), ("mlp.c_fc", "mlp.fc1"), ("mlp.c_proj", "mlp.fc2")):
+            out[d + b + ".weight"], out[d + b + ".bias"] = sd[s + a + ".weight"], \
+                sd[s + a + ".bias"]
+
+
 def clip_state_dict_from_open_clip(sd: Mapping[str, torch.Tensor],
                                    cfg: ClipScoreConfig) -> Dict[str, torch.Tensor]:
     """An open_clip CLIP state dict (the reference's scoring checkpoints and
@@ -202,22 +221,8 @@ def clip_state_dict_from_open_clip(sd: Mapping[str, torch.Tensor],
     resblocks.{i} with ln_1 / ln_2 and mlp.c_fc / c_proj, the (width,
     embed) projections transposed to nn.Linear's (embed, width)."""
     out = {}
-
-    def tower(src, dst, layers):
-        for i in range(layers):
-            s, d = f"{src}transformer.resblocks.{i}.", f"{dst}.encoder.layers.{i}."
-            for part, w, b in zip(("q_proj", "k_proj", "v_proj"),
-                                  sd[s + "attn.in_proj_weight"].chunk(3, dim=0),
-                                  sd[s + "attn.in_proj_bias"].chunk(3, dim=0)):
-                out[d + f"self_attn.{part}.weight"], out[d + f"self_attn.{part}.bias"] = w, b
-            for a, b in (("attn.out_proj", "self_attn.out_proj"), ("ln_1", "layer_norm1"),
-                         ("ln_2", "layer_norm2"), ("mlp.c_fc", "mlp.fc1"),
-                         ("mlp.c_proj", "mlp.fc2")):
-                out[d + b + ".weight"], out[d + b + ".bias"] = sd[s + a + ".weight"], \
-                    sd[s + a + ".bias"]
-
-    tower("visual.", "vision_model", cfg.vision_layers)
-    tower("", "text_model", cfg.text_layers)
+    open_clip_tower(sd, out, "visual.", "vision_model", cfg.vision_layers)
+    open_clip_tower(sd, out, "", "text_model", cfg.text_layers)
     for a, b in (("visual.ln_pre", "vision_model.pre_layrnorm"),
                  ("visual.ln_post", "vision_model.post_layernorm"),
                  ("ln_final", "text_model.final_layer_norm")):

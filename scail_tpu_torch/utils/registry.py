@@ -66,5 +66,9 @@ def ensure_imports():
         "scail_tpu_torch.diffusion.conditioner",
         "scail_tpu_torch.diffusion.loss",
         "scail_tpu_torch.diffusion.sigma_sampling",
+        "scail_tpu_torch.diffusion.embedders",
+        "scail_tpu_torch.models.unet",
+        "scail_tpu_torch.autoencoding.autoencoder_kl",
+        "scail_tpu_torch.inference.engine",
     ):
         importlib.import_module(m)

@@ -416,7 +416,9 @@ def test_port_never_imports_jax():
         "'cli.bench_14b_e2e', 'convert.torch_ckpt', 'convert.wan_vae_ckpt', "
         "'training.lora', 'parallel.mesh', 'parallel.comm', 'parallel.distributed', "
         "'parallel.sharding', 'parallel.ulysses', 'parallel.ring', "
-        "'parallel.cross_entropy'):\n"
+        "'parallel.cross_entropy', 'diffusion.embedders', 'models.unet', "
+        "'autoencoding.vqgan', 'autoencoding.regularizers', 'autoencoding.autoencoder_kl', "
+        "'inference.api', 'inference.engine', 'inference.helpers', 'inference.watermark'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -440,7 +442,10 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                 "cli/bench_14b_e2e.py", "convert/torch_ckpt.py", "convert/wan_vae_ckpt.py",
                 "training/lora.py", "parallel/mesh.py", "parallel/comm.py",
                 "parallel/distributed.py", "parallel/sharding.py", "parallel/ulysses.py",
-                "parallel/ring.py", "parallel/cross_entropy.py"):
+                "parallel/ring.py", "parallel/cross_entropy.py", "diffusion/embedders.py",
+                "models/unet.py", "autoencoding/vqgan.py", "autoencoding/regularizers.py",
+                "autoencoding/autoencoder_kl.py", "inference/api.py", "inference/engine.py",
+                "inference/helpers.py", "inference/watermark.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}
