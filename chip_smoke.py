@@ -34,7 +34,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  per step); the DiT's parameter gradients on the kernel path
                  against the plain path on a small input; then, at 4 layers
                  (two full-depth checkpoints would pass the machine's disk-write
-                 limit), 2 steps saved and 1 step resumed from the checkpoint.
+                 limit), 2 steps saved and 1 step resumed from the checkpoint,
+                 each step logged (log_interval 1): metrics.jsonl read back,
+                 and the TensorBoard scalars under <save>/runs/train where
+                 torch.utils.tensorboard imports (the line says which
+                 backends were live).
   6b. train STA -- 2 steps at full width and depth from a YAML with
                  `attn_impl: sta` (exact K7/K8/K2/K3/K5 launches), gradients
                  kernel vs plain path.
@@ -115,7 +119,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  steps at full width and PARALLEL_TRAIN_LAYERS layers (exact
                  launches; step 1's loss within 3e-2 of the one-process step
                  at the same depth and seed), and vae_decode_cp of 21
-                 latent frames at 512x896 against the streamed decode.
+                 latent frames at 512x896 against the streamed decode.  After
+                 the train run's counts, training/sync.py on the trained,
+                 sharded model: drift 0.0, a replicated parameter moved by 0.5
+                 on rank 1 found on both ranks, sync_params_across_ranks back
+                 to 0.0.
                  Seconds, bytes sent and peak GB of each run per rank; each
                  rank under PARALLEL_RANK_PEAK_GB.
   11. evals   -- the quality evals on random weights from seeds, each network at
@@ -160,6 +168,34 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  teacher alike at 48,832 tokens, its backward and exact
                  launches; TASDLoss and TASDLossRF on a plain torch network,
                  card against CPU within 1e-5.
+  13. trainers -- (a) Trainer.fit through the train CLI on the 1.3B at full
+                 width and depth: train_iters 4, exit_interval 2,
+                 eval_interval 1, eval_iters 1 on the step's example: 2 steps
+                 and 2 evaluations, each evaluation exactly EVAL_FORWARD_LAUNCHES
+                 (one forward without remat), the timers' ms per step and
+                 report_memory (no save at full depth: the disk-write limit);
+                 then at 4 layers with --save: step 1's loss made NaN under
+                 skip_nan (skipped), step 2 inside profile_trace with an
+                 annotate range (the trace file holds it), step 3's loss NaN
+                 with skip_nan off (applied), the exit at 3 of 4 and its final
+                 save, metrics read back.  (b) AutoencoderTrainer with
+                 LPIPSWithDiscriminator (hinge, the adaptive weight, LPIPS at
+                 random weights) and NLayerDiscriminator (ndf 64, 3 layers),
+                 f32 with TF32 off, 2 generator and 2 discriminator steps at
+                 256 x 256, batch 2, on the VQGAN of vqgan_imagenet_f16_1024
+                 and Kandinsky 2.x's MOVQ, and the MOVQ with the EMA quantiser:
+                 ms a step, peak GB, finite losses, the codebook moved.  (c) the
+                 video tokenizer at the JAX package's defaults (init_dim 64, LFQ
+                 2^18 codes) on a 17-frame 128 x 128 clip under
+                 VideoAutoencoderLoss and the 3D discriminator (image_size 128,
+                 frame_num 16) on the 16 frames after the first (its 3D blocks
+                 halve the frames, as the JAX function's reshape needs), the
+                 LFQ's entropy terms in chunks of tokens; those terms chunked
+                 against unchunked on 2,048 tokens, the chunked pass timed on
+                 all 36,864.  (d) card against CPU, relative L2 <= 1e-4:
+                 VQModel and MOVQ at depth 1, both discriminators, the
+                 tokenizer at init_dim 8, LFQ at 2^8 codes, both losses with
+                 their gradients.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -172,7 +208,8 @@ main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
 train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
 phases 7, 7b and 8, the --load request of phase 9, the two ranks of phase
 10 (their runs summed), the two sampling passes of validate_weights in
-phase 11, and phase 12's DiT under DPMPP2MSampler and its PD step, each
+phase 11, phase 12's DiT under DPMPP2MSampler and its PD step, and phase
+13's Trainer.fit with its evaluations and its 4-layer hook run, each
 counted from 0, and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
@@ -1477,6 +1514,20 @@ def _grad_parity(dit, kernel, plain, small, label):
     return rel
 
 
+def _cut_yaml(layers):
+    """A copy of the 1.3B YAML at `layers` layers (full width), in WORK."""
+    import yaml
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
+        cut = yaml.safe_load(f)
+    cut["model"]["network_config"]["params"]["num_layers"] = layers
+    path = os.path.join(WORK, f"scail_1p3b_{layers}layers.yaml")
+    os.makedirs(WORK, exist_ok=True)
+    with open(path, "w") as f:
+        yaml.safe_dump(cut, f)
+    return path
+
+
 def _train_argv(base, data_root):
     return ["--base", base, "--data-root", data_root, "--image-size", "512", "896",
             "--num-frames", "81", "--batch-size", "1", "--warmup-iters", "1", "--seed", "0",
@@ -1491,16 +1542,65 @@ def _data_root(ex81):
     return data_root
 
 
+def _log_every_step():
+    """The Trainer logs every step inside the block (the train CLI keeps
+    TrainConfig's log_interval of 10, more than the smoke runs' steps)."""
+    import contextlib
+    import functools
+
+    import scail_tpu_torch.training.engine as engine_mod
+
+    @contextlib.contextmanager
+    def ctx():
+        real = engine_mod.TrainConfig
+        engine_mod.TrainConfig = functools.partial(real, log_interval=1)
+        try:
+            yield
+        finally:
+            engine_mod.TrainConfig = real
+
+    return ctx()
+
+
+def _metrics_read_back(save, backends, iters, label):
+    """The Trainer's metric outputs under `save`: metrics.jsonl's records of
+    `iters`, and, where TensorBoard was live, the `loss` scalars read back
+    from <save>/runs/train equal to the JSONL's.  Returns a record."""
+    recs = [json.loads(x) for x in open(os.path.join(save, "metrics.jsonl"))]
+    if [r["iter"] for r in recs] != iters or not all(
+            isinstance(r["loss"], float) for r in recs):
+        fail(f"{label}: metrics.jsonl holds {recs}, expected iterations {iters}")
+    out = {"backends": backends, "jsonl_records": len(recs)}
+    if backends["tensorboard"]:
+        from tensorboard.backend.event_processing import event_accumulator
+
+        acc = event_accumulator.EventAccumulator(os.path.join(save, "runs", "train"))
+        acc.Reload()
+        got = sorted((e.step, e.value) for e in acc.Scalars("loss"))
+        want = [(r["iter"], r["loss"]) for r in recs]
+        if [s for s, _ in got] != iters or not all(
+                (g != g and w != w) or abs(g - w) <= 1e-6 * max(1.0, abs(w))
+                for (_, g), (_, w) in zip(got, want)):
+            fail(f"{label}: TensorBoard's loss scalars {got} differ from metrics.jsonl's {want}")
+        out["tensorboard_scalars"] = len(acc.Tags()["scalars"])
+    log(f"{label}: metric writers live on this machine: {backends} (tensorboard: "
+        f"{'live' if backends['tensorboard'] else 'absent'}); metrics.jsonl {len(recs)} "
+        f"records" + (f", TensorBoard {out['tensorboard_scalars']} scalar tags read back "
+                      "equal" if backends["tensorboard"] else ""))
+    return out
+
+
 def phase_train(ex81):
     """The train CLI at full width and depth: 2 steps (the main path), then
     the DiT's gradients, kernel path against plain path; then save and
-    resume at RESUME_LAYERS layers: 2 steps saved, 1 step resumed."""
+    resume at RESUME_LAYERS layers: 2 steps saved, 1 step resumed, every
+    step logged through the metric writers (metrics.jsonl, and TensorBoard
+    where it imports), read back."""
     import gc
     import math
     import shutil
 
     import torch
-    import yaml
 
     from scail_tpu_torch.cli import train
 
@@ -1517,22 +1617,21 @@ def phase_train(ex81):
     torch.cuda.empty_cache()
 
     # save, then resume, on the same YAML at RESUME_LAYERS layers
-    with open(base) as f:
-        cut = yaml.safe_load(f)
-    cut["model"]["network_config"]["params"]["num_layers"] = RESUME_LAYERS
-    cut_yaml = os.path.join(WORK, f"scail_1p3b_{RESUME_LAYERS}layers.yaml")
-    with open(cut_yaml, "w") as f:
-        yaml.safe_dump(cut, f)
+    cut_yaml = _cut_yaml(RESUME_LAYERS)
     save = os.path.join(WORK, "train_run")
     shutil.rmtree(save, ignore_errors=True)
     short = _train_argv(cut_yaml, _data_root(ex81)) + ["--save", save]
     t0 = time.perf_counter()
-    first = train.main(short + ["--train-iters", "2"])
-    saved = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(save) for n in ns)
-    del first
-    gc.collect()
-    resumed = train.main(short + ["--train-iters", "3", "--resume"])
+    with _log_every_step():
+        first = train.main(short + ["--train-iters", "2"])
+        backends = first.metrics_writer.backends
+        saved = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(save)
+                    for n in ns if not d.startswith(os.path.join(save, "runs")))
+        del first
+        gc.collect()
+        resumed = train.main(short + ["--train-iters", "3", "--resume"])
     torch.cuda.synchronize()
+    stats["metrics"] = _metrics_read_back(save, backends, [1, 2, 3], "train --save")
     log(f"train at {RESUME_LAYERS} layers: 2 steps saved ({saved / 2**30:.2f} GiB "
         f"checkpoint), then resumed at step 2, now at step {resumed.step}, loss "
         f"{resumed.history[0]['loss'] if resumed.history else None}; both runs "
@@ -2842,20 +2941,8 @@ def _parallel_rank_main():
     dist.destroy_process_group()
 
 
-def _parallel_train_yaml():
-    import yaml
-
-    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
-        cut = yaml.safe_load(f)
-    cut["model"]["network_config"]["params"]["num_layers"] = PARALLEL_TRAIN_LAYERS
-    path = os.path.join(WORK, f"scail_1p3b_{PARALLEL_TRAIN_LAYERS}layers.yaml")
-    with open(path, "w") as f:
-        yaml.safe_dump(cut, f)
-    return path
-
-
 def _parallel_train_argv():
-    return _train_argv(_parallel_train_yaml(), os.path.join(WORK, "train_data"))
+    return _train_argv(_cut_yaml(PARALLEL_TRAIN_LAYERS), os.path.join(WORK, "train_data"))
 
 
 def _parallel_train_rank():
@@ -2893,8 +2980,38 @@ def _parallel_train_rank():
     log(f"train --mesh-model 2 at {L} layers: {r['seconds']:.1f} s for 2 steps (with engine "
         f"build), losses {r['losses']}, gradient norms {r['grad_norms']}, peak "
         f"{r['peak_gb']:.2f} GB, {r['bytes_sent'] / 1e9:.3f} GB sent, collectives {r['collectives']}")
+    r["param_sync"] = _param_sync_check(trainer)
+    _no_jax_loaded(f"rank {torch.distributed.get_rank()} after the train CLI")
     del trainer
     return r
+
+
+def _param_sync_check(trainer):
+    """training/sync.py on the trained, sharded model, after the run's
+    launches and collectives were counted: drift 0.0; one replicated
+    parameter moved by 0.5 on rank 1 and the drift found on both ranks;
+    sync_params_across_ranks brings it back to 0.0."""
+    import torch
+    import torch.distributed as dist
+
+    from scail_tpu_torch.training.sync import check_param_sync, sync_params_across_ranks
+
+    t0 = time.perf_counter()
+    params = dict(trainer.model.named_parameters())
+    agree = trainer.check_param_sync()
+    name = next(n for n, p in params.items() if not trainer._sharded(n, p))
+    if dist.get_rank() == 1:
+        with torch.no_grad():
+            params[name].view(-1)[0] += 0.5
+    drift = check_param_sync(params, atol=float("inf"), mesh=trainer.mesh, rules=trainer.rules)
+    sync_params_across_ranks(params, mesh=trainer.mesh, rules=trainer.rules)
+    after = trainer.check_param_sync()
+    res = {"agree": agree, "perturbed": name, "drift": drift, "after": after,
+           "seconds": time.perf_counter() - t0}
+    log(f"param sync (rank {dist.get_rank()}): {res}")
+    if agree != 0.0 or abs(drift - 0.5) > 1e-3 or after != 0.0:
+        fail(f"param sync on rank {dist.get_rank()}: {res}")
+    return res
 
 
 def _nccl_world1_main():
@@ -2951,6 +3068,19 @@ def _nccl_world1_main():
     if not all(ops.values()):
         fail(f"NCCL world 1: a collective returned a wrong value: {ops}")
     dist.destroy_process_group()
+
+
+NO_JAX_MODULES = ("jax", "jaxlib", "flax", "ml_dtypes", "scail_tpu")
+
+
+def _no_jax_loaded(where):
+    """Fail if this process holds jax, flax, ml_dtypes (which TensorFlow
+    imports, and TensorBoard imports TensorFlow where one is installed) or
+    the JAX package."""
+    bad = sorted(m for m in sys.modules if m.split(".")[0] in NO_JAX_MODULES)
+    if bad:
+        fail(f"{where}: the port's run imported {bad[:8]}")
+    log(f"{where}: none of {', '.join(NO_JAX_MODULES)} is imported")
 
 
 def _free_port():
@@ -3046,6 +3176,8 @@ def phase_parallel(ex81):
                 if not abs(g - w) <= DIT_REL_TOL * abs(w):
                     fail(f"parallel: rank {rank}'s step-{step} {what} {g} vs the one-process "
                          f"{w} (relative tol {DIT_REL_TOL})")
+    log("parallel: replica sync after the two-rank train run: " + "; ".join(
+        f"rank {rank} {rec['train']['param_sync']}" for rank, rec in enumerate(recs)))
     counts = {}
     for rec in recs:
         for r in list(rec["runs"].values()) + [rec["train"]]:
@@ -3830,6 +3962,537 @@ def phase_image():
     return zoo_counts, pd_counts, stats
 
 
+# phase 13: both trainers.  One evaluation forward of the 1.3B DiT at 48,832
+# tokens runs without remat (evaluate is under no_grad): K1 and K3 a layer,
+# K9 2L + 1, K10 on k
+EVAL_FORWARD_LAUNCHES = {"flash_attention_rope": 30, "dual_cross_attention": 30,
+                         "adaln_layer_norm": 61, "rotary": 30}
+TRAINER_HOOK_LAYERS = 4
+# card against CPU for the autoencoder modules (f32 both sides, TF32 off)
+TRAINERS_REL_TOL = 1e-4
+# the published first stages: taming-transformers' vqgan_imagenet_f16_1024.yaml
+# and Kandinsky 2.x's movq
+VQGAN_F16_1024 = dict(ddconfig=dict(double_z=False, z_channels=256, resolution=256,
+                                    in_channels=3, out_ch=3, ch=128, ch_mult=(1, 1, 2, 2, 4),
+                                    num_res_blocks=2, attn_resolutions=(16,), dropout=0.0),
+                      n_embed=1024, embed_dim=256)
+KANDINSKY_MOVQ = dict(ddconfig=dict(double_z=False, z_channels=4, resolution=256, in_channels=3,
+                                    out_ch=3, ch=128, ch_mult=(1, 2, 2, 4), num_res_blocks=2,
+                                    attn_resolutions=(32,), dropout=0.0),
+                      n_embed=16384, embed_dim=4)
+# the losses' gradients on cuDNN against the CPU where a LeakyReLU input of
+# the 3D discriminator lies within rounding of 0 (|x| <= KINK_NEAR of that
+# activation's largest) and lands on the other side on the card: its slope
+# there is 1 on one device and 0.1 on the other, which moves the gradient of
+# every weight below it by ~2e-3 (on an H100 with cuDNN 9.22, one input at
+# 5.2e-9, 1.3e-7 of its activation's largest, flips under cuDNN's rounding;
+# none with cuDNN off).  Without such a flip the cuDNN run is held at
+# TRAINERS_REL_TOL like the rest
+KINK_NEAR = 1e-5
+KINK_GRAD_TOL = 5e-3
+# LFQ's entropy terms, chunked against unchunked on the card, on this many tokens
+LFQ_CHECK_TOKENS = 2048
+
+
+def _diff_counts(after, before):
+    return {k: v - before.get(k, 0) for k, v in after.items() if v - before.get(k, 0)}
+
+
+def _trainers_dit_fit(ex81, stats):
+    """(a) Trainer.fit on the 1.3B DiT at full width and depth through the
+    train CLI: train_iters 4, exit_interval 2, eval_interval 1, eval_iters 1
+    on the step's example; 2 steps and 2 evaluations, the launches each
+    evaluation adds, the timers and report_memory."""
+    import dataclasses
+    import itertools
+    import math
+
+    import torch
+
+    from scail_tpu_torch.cli import train
+    from scail_tpu_torch.training.engine import Trainer
+    from scail_tpu_torch.utils.profiling import report_memory
+
+    seen = {"evals": [], "eval_launches": [], "eval_s": []}
+    real_fit, real_eval = Trainer.fit, Trainer.evaluate
+
+    def fit(self, data_iter, *a, **kw):
+        self.config = dataclasses.replace(self.config, exit_interval=2, eval_interval=1,
+                                          eval_iters=1)
+        first = next(data_iter)
+        return real_fit(self, itertools.chain([first], data_iter), itertools.repeat(first),
+                        self.loss_fn)
+
+    def evaluate(self, data_iter, loss_fn):
+        torch.cuda.synchronize()
+        before, t0 = launch_counts(), time.perf_counter()
+        v = real_eval(self, data_iter, loss_fn)
+        torch.cuda.synchronize()
+        seen["eval_s"].append(time.perf_counter() - t0)
+        seen["eval_launches"].append(_diff_counts(launch_counts(), before))
+        seen["evals"].append(v)
+        return v
+
+    Trainer.fit, Trainer.evaluate = fit, evaluate
+    try:
+        argv = _train_argv(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml"),
+                           _data_root(ex81)) + ["--train-iters", "4"]
+        torch.cuda.reset_peak_memory_stats()
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Trainer.fit, Trainer.evaluate = real_fit, real_eval
+    steps = len(trainer.history)
+    timer_ms = {n: trainer.timers(n).elapsed(reset=False) * 1e3 / steps
+                for n in ("data loader", "train_step")}
+    timers_line = trainer.timers.log(["data loader", "train_step"], normalizer=steps)
+    mem = report_memory("phase 13 (a), after Trainer.fit")
+    losses = [m["loss"] for m in trainer.history]
+    want = {k: 2 * v + 2 * EVAL_FORWARD_LAUNCHES.get(k, 0)
+            for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
+    log(f"trainers (a): Trainer.fit at 30 layers: stopped at step {trainer.step} of 4 "
+        f"(exit_interval 2), losses {losses}, evaluation losses {seen['evals']} "
+        f"({[round(x, 2) for x in seen['eval_s']]} s each); timers per step: {timers_line} "
+        f"(phase 6's steps {BASELINE['dense'].get('step_s')} s); report_memory {mem}; each "
+        f"evaluation launched {seen['eval_launches']}; all launches {counts}; {total:.1f} s "
+        "with the engine build")
+    if trainer.step != 2 or steps != 2 or not all(m["ok"] for m in trainer.history) or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"trainers (a): fit did not take 2 finite steps and exit: {trainer.history}")
+    if len(seen["evals"]) != 2 or not all(math.isfinite(x) for x in seen["evals"]):
+        fail(f"trainers (a): expected 2 finite evaluations, got {seen['evals']}")
+    for i, got in enumerate(seen["eval_launches"]):
+        _exact(got, EVAL_FORWARD_LAUNCHES, f"trainers (a), evaluation {i + 1}")
+    _exact(counts, want, "trainers (a), 2 steps and 2 evaluations")
+    stats["dit_fit"] = {"losses": losses, "eval_losses": seen["evals"], "eval_s": seen["eval_s"],
+                        "timer_ms_per_step": timer_ms, "report_memory": mem,
+                        "peak_gb": torch.cuda.max_memory_allocated() / 1e9, "seconds": total}
+    del trainer
+    _free_card()
+    return counts
+
+
+def _trainers_dit_hooks(ex81, stats):
+    """(a) at TRAINER_HOOK_LAYERS layers, full width, with --save: step 1's
+    loss made NaN under skip_nan (skipped: no update, the optimizer count
+    stays), step 2 inside profile_trace with an annotate range, step 3's
+    loss NaN with skip_nan off (applied: the parameters turn NaN); the exit
+    at 3 of 4, its final save, the metric writers read back."""
+    import dataclasses
+    import shutil
+
+    import torch
+
+    from scail_tpu_torch.cli import train
+    from scail_tpu_torch.training.checkpoint import read_latest
+    from scail_tpu_torch.training.engine import Trainer
+    from scail_tpu_torch.utils.profiling import annotate, profile_trace, trace_path
+
+    L = TRAINER_HOOK_LAYERS
+    save, trace_dir = os.path.join(WORK, "trainers_run"), os.path.join(WORK, "trainers_trace")
+    for d in (save, trace_dir):
+        shutil.rmtree(d, ignore_errors=True)
+    rec = {"ok": [], "count": [], "moved": [], "nan": []}
+    real_fit, real_step = Trainer.fit, Trainer.train_step
+
+    def fit(self, *a, **kw):
+        self.config = dataclasses.replace(self.config, exit_interval=3, log_interval=1)
+        return real_fit(self, *a, **kw)
+
+    def train_step(self, batch):
+        i = self.step
+        name = next(iter(self.params))
+        before = self.params[name].detach().clone()
+        if i in (0, 2):
+            self.config = dataclasses.replace(self.config, skip_nan=(i == 0))
+            real_loss = self.loss_fn
+            self.loss_fn = lambda g, b: real_loss(g, b) * float("nan")
+            try:
+                m = real_step(self, batch)
+            finally:
+                self.loss_fn = real_loss
+        else:
+            with profile_trace(trace_dir), annotate("phase13_train_step"):
+                m = real_step(self, batch)
+            torch.cuda.synchronize()
+        after = self.params[name].detach()
+        rec["ok"].append(m["ok"])
+        rec["count"].append(self.opt_state.count)
+        rec["moved"].append(not torch.equal(before, after))
+        rec["nan"].append(bool(torch.isnan(after).any()))
+        return m
+
+    Trainer.fit, Trainer.train_step = fit, train_step
+    try:
+        argv = _train_argv(_cut_yaml(L), _data_root(ex81)) + ["--save", save,
+                                                              "--train-iters", "4"]
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Trainer.fit, Trainer.train_step = real_fit, real_step
+    per_step = {"flash_attention_rope": 2 * L, "dual_cross_attention": 2 * L,
+                "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+                "adaln_layer_norm": 4 * L + 1, "rotary": 3 * L}
+    _exact(counts, {k: 3 * v for k, v in per_step.items()}, f"trainers (a), {L} layers, 3 steps")
+    with open(trace_path(trace_dir)) as f:
+        events = json.load(f)["traceEvents"]
+    annotated = sum(e.get("name") == "phase13_train_step" for e in events)
+    kernels = sum(e.get("cat") == "kernel" for e in events)
+    metrics = _metrics_read_back(save, trainer.metrics_writer.backends, [1, 2, 3],
+                                 "trainers (a) hooks")
+    out = dict(rec, skipped=trainer.skipped, step=trainer.step, latest=read_latest(save),
+               trace_events=len(events), trace_annotated=annotated, trace_kernels=kernels,
+               metrics=metrics, seconds=total)
+    log(f"trainers (a) hooks at {L} layers: {out}")
+    if rec != {"ok": [False, True, True], "count": [0, 1, 2], "moved": [False, True, True],
+               "nan": [False, False, True]} or trainer.skipped != 1 or trainer.step != 3 or \
+            out["latest"] != "3" or not annotated:
+        fail(f"trainers (a): skip_nan / exit / final save / trace checks failed: {out}")
+    stats["dit_hooks"] = out
+    del trainer
+    shutil.rmtree(save, ignore_errors=True)
+    _free_card()
+    return counts
+
+
+def _top_kernels(fn, n=6):
+    """The n kernels that take the most device time in fn() (torch.profiler
+    over CUPTI): {name: ms}."""
+    import torch
+
+    with torch.profiler.profile(activities=[torch.profiler.ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    rows = sorted(prof.key_averages(), key=lambda e: -e.device_time_total)[:n]
+    return {e.key[:80]: round(e.device_time_total / 1e3, 3) for e in rows}
+
+
+def _timed_steps(trainer, batch, generator, n=4):
+    """n alternating train steps, each between device synchronisations:
+    (losses, ms of each step)."""
+    import torch
+
+    losses, ms = [], []
+    for i in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        loss, _ = trainer.train_step(batch, generator, i, i)
+        torch.cuda.synchronize()
+        ms.append((time.perf_counter() - t0) * 1e3)
+        losses.append(float(loss))
+    return losses, ms
+
+
+def _trainers_vq(stats, lpips):
+    """(b) AutoencoderTrainer with LPIPSWithDiscriminator (hinge, disc_start
+    0, the adaptive weight, LPIPS at random weights) and NLayerDiscriminator
+    (ndf 64, 3 layers): the VQGAN f16-1024 and the MOVQ at their published
+    widths, then the MOVQ with the EMA quantiser, 2 generator and 2
+    discriminator steps each at 256 x 256, batch 2, f32."""
+    import math
+
+    import torch
+
+    from scail_tpu_torch.autoencoding import (AutoencoderTrainer, EMAVectorQuantizer,
+                                              LPIPSWithDiscriminator, NLayerDiscriminator)
+    from scail_tpu_torch.autoencoding.vqgan import MOVQ, VQModel
+
+    g = torch.Generator(device="cuda").manual_seed(13)
+    x = torch.rand((2, 3, 256, 256), generator=g, device="cuda") * 2 - 1
+    out = {}
+    for label, cls, cfg, ema in (("vqgan_f16_1024", VQModel, VQGAN_F16_1024, False),
+                                 ("movq", MOVQ, KANDINSKY_MOVQ, False),
+                                 ("movq_ema", MOVQ, KANDINSKY_MOVQ, True)):
+        model = cls(**cfg, device="cuda").init_random_(g)
+        parts = model.trainer_parts()
+        if ema:
+            parts["regularizer"] = EMAVectorQuantizer(cfg["n_embed"], cfg["embed_dim"], beta=0.25,
+                                                      device="cuda").init_random_(g)
+        codebook = parts["regularizer"].embedding.weight
+        before = codebook.detach().clone()
+        disc = NLayerDiscriminator(3, 64, 3, device="cuda").init_random_(g)
+        loss = LPIPSWithDiscriminator(disc_start=0, disc_loss="hinge", lpips=lpips,
+                                      regularization_weights={"loss/vq": 1.0})
+        trainer = AutoencoderTrainer(**parts, loss=loss, discriminator=disc)
+        torch.cuda.reset_peak_memory_stats()
+        losses, ms = _timed_steps(trainer, x, g)
+        moved = (codebook.detach() - before).abs().max().item()
+        r = {"params_m": sum(p.numel() for p in model.parameters()) / 1e6, "losses": losses,
+             "step_ms": ms, "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+             "codebook_moved": moved}
+
+        def step_pair():
+            trainer.train_step(x, g, 0, 4)
+            trainer.train_step(x, g, 1, 4)
+
+        r["top_kernels_ms"] = _top_kernels(step_pair)  # one more pair, profiled
+        log(f"trainers (b) {label}: {r}")
+        if not all(math.isfinite(v) for v in losses) or not moved > 0:
+            fail(f"trainers (b) {label}: non-finite loss or a codebook that did not move: {r}")
+        out[label] = r
+        del model, parts, disc, trainer, codebook, before
+        _free_card()
+    stats["vq"] = out
+
+
+class _AfterFirstFrame:
+    """The video discriminator on the frames after the first: a 17-frame clip
+    (a first frame, then 16) gives it 16, which its 3D blocks halve."""
+
+    def __init__(self, disc):
+        self.disc = disc
+
+    def __call__(self, x):
+        return self.disc(x[:, :, 1:])
+
+    def parameters(self):
+        return self.disc.parameters()
+
+
+def _trainers_tokenizer(stats, lpips):
+    """(c) the video tokenizer at the JAX package's default config (init_dim
+    64, LFQ 2^18 codes) on 17 frames at 128 x 128, batch 1, under
+    VideoAutoencoderLoss with the 3D discriminator (image_size 128,
+    frame_num 16): 2 generator and 2 discriminator steps, the LFQ chunked;
+    then its entropy terms chunked against unchunked on LFQ_CHECK_TOKENS
+    tokens, and the chunked pass timed on all of them."""
+    import math
+
+    import torch
+
+    from scail_tpu_torch.autoencoding import (AutoencoderTrainer, VideoAutoencoderLoss,
+                                              VideoDiscriminator, lfq_entropy_terms)
+    from scail_tpu_torch.autoencoding.regularizers import lfq_auto_chunk, lfq_codebook
+    from scail_tpu_torch.autoencoding.video_tokenizer import VideoTokenizer, VideoTokenizerConfig
+
+    g = torch.Generator(device="cuda").manual_seed(14)
+    tok = VideoTokenizer(VideoTokenizerConfig(), device="cuda").init_random_(g)
+    disc = VideoDiscriminator(image_size=128, frame_num=16, device="cuda").init_random_(g)
+    loss = VideoAutoencoderLoss(disc_start=0, perceptual_weight=1.0, adversarial_loss_weight=0.1,
+                                grad_penalty_loss_weight=10.0, quantizer_aux_loss_weight=1.0,
+                                lpips=lpips)
+    trainer = AutoencoderTrainer(**tok.trainer_parts(), loss=loss,
+                                 discriminator=_AfterFirstFrame(disc))
+    v = torch.rand((1, 3, 17, 128, 128), generator=g, device="cuda") * 2 - 1
+    torch.cuda.reset_peak_memory_stats()
+    losses, ms = _timed_steps(trainer, v, g)
+    peak = torch.cuda.max_memory_allocated() / 1e9
+    lfq = tok.quantizers
+    with torch.no_grad():
+        feats = tok.encode(v).movedim(1, -1)
+        _, idx, _, br = tok.quantize(tok.encode(v))
+        x = torch.nn.functional.linear(feats, lfq.project_in.weight, lfq.project_in.bias)
+    x = x.reshape(-1, 1, lfq.codebook_dim).float()
+    n = x.shape[0]
+    cb = lfq_codebook(lfq.codebook_size, device="cuda")
+    chunk = lfq_auto_chunk(n, 1, lfq.codebook_size)
+
+    def entropy_pass(xx, ch):
+        xx = xx.detach().requires_grad_(True)
+        ps, be = lfq_entropy_terms(xx, cb, lfq.inv_temperature, ch)
+        (ps - lfq.diversity_gamma * be).backward()
+        return ps.item(), be.item(), xx.grad
+
+    lfq_ms = _timed_on_card(lambda: entropy_pass(x, chunk))[1] * 1e3
+    sub = x[:LFQ_CHECK_TOKENS]
+    a, b = entropy_pass(sub, None), entropy_pass(sub, 512)
+    rel = {"per_sample_entropy": abs(a[0] - b[0]) / abs(a[0]),
+           "batch_entropy": abs(a[1] - b[1]) / abs(a[1]),
+           "grad_rel_l2": _rel_l2(b[2], a[2])}
+    r = {"params_m": sum(p.numel() for p in tok.parameters()) / 1e6, "losses": losses,
+         "step_ms": ms, "peak_gb": peak, "tokens": n, "chunk_tokens": chunk,
+         "per_sample_entropy": br["per_sample_entropy"].item(),
+         "batch_entropy": br["batch_entropy"].item(), "codes_used": int(idx.unique().numel()),
+         "lfq_entropy_fwd_bwd_ms": lfq_ms, "chunked_vs_unchunked": rel}
+    log(f"trainers (c) video tokenizer: {r}")
+    if not all(math.isfinite(v) for v in losses) or not all(x <= TRAINERS_REL_TOL
+                                                            for x in rel.values()):
+        fail(f"trainers (c): non-finite loss, or the chunked LFQ entropy disagrees: {r}")
+    stats["tokenizer"] = r
+    del tok, disc, trainer, x, sub, a, b
+    _free_card()
+
+
+def _with_lrelu_inputs(fn, dev):
+    """fn(dev), and the input of every LeakyReLU of the 3D discriminator that
+    it ran, on the host, in call order."""
+    import scail_tpu_torch.autoencoding.discriminator as disc_mod
+
+    seen, real = [], disc_mod._lrelu
+
+    def lrelu(x, slope):
+        seen.append(x.detach().float().cpu())
+        return real(x, slope)
+
+    disc_mod._lrelu = lrelu
+    try:
+        return fn(dev), seen
+    finally:
+        disc_mod._lrelu = real
+
+
+def _trainers_card_vs_cpu(stats, lpips_cpu):
+    """(d) each new module on the card and on the CPU from one state dict,
+    f32: VQModel and MOVQ at their widths with 1 resnet block a level (64 x
+    64), both discriminators, the tokenizer at init_dim 8, LFQ at 2^8 codes,
+    and both losses with their gradients; relative L2 <= TRAINERS_REL_TOL."""
+    import copy
+
+    import torch
+
+    from scail_tpu_torch.autoencoding import (LFQ, LPIPSWithDiscriminator, NLayerDiscriminator,
+                                              VideoAutoencoderLoss, VideoDiscriminator)
+    from scail_tpu_torch.autoencoding.video_tokenizer import VideoTokenizer, VideoTokenizerConfig
+    from scail_tpu_torch.autoencoding.vqgan import MOVQ, VQModel
+
+    g = torch.Generator().manual_seed(15)
+    rel = {}
+
+    def check(label, got, want, tol=TRAINERS_REL_TOL):
+        for i, (a, b) in enumerate(zip(got, want)):
+            r = _rel_l2(a.detach().cpu().float(), b.detach().float())
+            rel[f"{label}[{i}]"] = r
+            if not (torch.isfinite(a).all() and r <= tol):
+                fail(f"trainers (d): {label} output {i} on the card disagrees with the CPU "
+                     f"({r:.3e} > {tol:.0e})")
+
+    def both(label, module, fn, *inputs):
+        card = copy.deepcopy(module).cuda()
+        with torch.no_grad():
+            check(label, fn(card, *(t.cuda() for t in inputs)), fn(module, *inputs))
+
+    img = torch.rand((1, 3, 64, 64), generator=g) * 2 - 1
+    for name, cls, cfg in (("VQModel", VQModel, VQGAN_F16_1024), ("MOVQ", MOVQ, KANDINSKY_MOVQ)):
+        m = cls(**dict(cfg, ddconfig=dict(cfg["ddconfig"], num_res_blocks=1))).init_random_(g)
+        both(name, m, lambda mm, x: (mm(x)[0], mm.encode(x)[0]), img)
+    both("NLayerDiscriminator", NLayerDiscriminator(3, 64, 3).init_random_(g),
+         lambda mm, x: (mm(x),), torch.rand((2, 3, 64, 64), generator=g) * 2 - 1)
+    vdisc = VideoDiscriminator(image_size=32, frame_num=4).init_random_(g)
+    clip = torch.rand((2, 3, 4, 32, 32), generator=g) * 2 - 1
+    both("VideoDiscriminator", vdisc, lambda mm, x: (mm(x),), clip)
+    tok = VideoTokenizer(VideoTokenizerConfig(init_dim=8, codebook_size=2 ** 8)).init_random_(g)
+    both("VideoTokenizer", tok, lambda mm, x: mm(x)[:2],
+         torch.rand((1, 3, 5, 32, 32), generator=g) * 2 - 1)
+    lfq = LFQ(dim=16, codebook_size=2 ** 8, diversity_gamma=2.5).init_random_(g)
+
+    def lfq_fn(mm, x):
+        x = x.clone().requires_grad_(True)
+        q, _, aux, _ = mm.quantize(x)
+        (aux + q.square().sum()).backward()
+        return q, aux, x.grad
+
+    xl = torch.randn((2, 100, 16), generator=g) * 0.1
+    check("LFQ (2^8 codes) and its gradient", lfq_fn(copy.deepcopy(lfq).cuda(), xl.cuda()),
+          lfq_fn(lfq, xl))
+
+    # the losses and their gradients: the reconstruction through a 1x1 head
+    nl = NLayerDiscriminator(3, 64, 3).init_random_(g)
+    head = torch.nn.Conv2d(8, 3, 1)
+    feats = torch.randn((2, 8, 64, 64), generator=g)
+    target = torch.rand((2, 3, 64, 64), generator=g) * 2 - 1
+    lp_card = copy.deepcopy(lpips_cpu).cuda()
+
+    def image_loss(dev):
+        # no LPIPS here: the adaptive weight scales the GAN term's gradient at
+        # the head to the nll's, where the two partly cancel, which amplifies
+        # the rounding of 13 random VGG layers (LPIPS alone: phase 11)
+        d, h = copy.deepcopy(nl).to(dev), copy.deepcopy(head).to(dev)
+        f = feats.to(dev).detach().requires_grad_(True)  # a leaf on either device
+        loss_obj = LPIPSWithDiscriminator(disc_start=0, disc_weight=0.5, lpips=None)
+        total, log_ = loss_obj.generator_loss(d, torch.zeros((), device=dev), target.to(dev),
+                                              h(f), {}, 1, adaptive_ctx=(h, f))
+        total.backward()
+        dl, _ = loss_obj.discriminator_loss(d, target.to(dev), h(f).detach(), 1)
+        return total, log_["scalars/d_weight"], f.grad, h.weight.grad, dl
+
+    losses = {"LPIPSWithDiscriminator and gradients": lambda dev: image_loss(dev)}
+    recon = torch.rand((2, 3, 4, 32, 32), generator=g) * 2 - 1
+
+    def video_loss(dev, lp):
+        d = copy.deepcopy(vdisc).to(dev)
+        r = recon.to(dev).detach().requires_grad_(True)
+        loss_obj = VideoAutoencoderLoss(disc_start=0, adversarial_loss_weight=0.1,
+                                        grad_penalty_loss_weight=10.0, lpips=lp)
+        total, _ = loss_obj.generator_loss(d, clip.to(dev), r, 1,
+                                           frame_indices=torch.tensor([0, 3], device=dev))
+        total.backward()
+        dl, _ = loss_obj.discriminator_loss(d, clip.to(dev), recon.to(dev), 1)
+        dl.backward()
+        return total, r.grad, dl, d.blocks[0].conv1.weight.grad
+
+    losses["VideoAutoencoderLoss and gradients"] = lambda dev: video_loss(
+        dev, lp_card if dev == "cuda" else lpips_cpu)
+    kinks = {}
+    for label, fn in losses.items():
+        want, want_x = _with_lrelu_inputs(fn, "cpu")
+        # the losses' math on the card with cuDNN off (PyTorch's own CUDA
+        # convolutions), then as the trainers run them, on cuDNN
+        torch.backends.cudnn.enabled = False
+        try:
+            check(label + ", cuDNN off", fn("cuda"), want)
+        finally:
+            torch.backends.cudnn.enabled = True
+        got, got_x = _with_lrelu_inputs(fn, "cuda")
+        flips = []
+        for i, (a, b) in enumerate(zip(got_x, want_x)):
+            flip = (a > 0) != (b > 0)
+            if flip.any():
+                flips.append({"call": i, "elements": int(flip.sum()),
+                              "cpu_abs_max": float(b[flip].abs().max()),
+                              "near": float(b[flip].abs().max() / b.abs().max())})
+        kinks[label] = flips
+        if any(f["near"] > KINK_NEAR for f in flips):
+            fail(f"trainers (d): {label}: a LeakyReLU input away from 0 changed sign on the "
+                 f"card: {flips}")
+        check(label, got, want, KINK_GRAD_TOL if flips else TRAINERS_REL_TOL)
+    log(f"trainers (d): card vs CPU relative L2 {rel} (tol {TRAINERS_REL_TOL:.0e}); LeakyReLU "
+        f"inputs on the other side of 0 on the card (cuDNN on): {kinks}")
+    stats["card_vs_cpu_rel_l2"] = rel
+    stats["lrelu_sign_flips"] = kinks
+    _free_card()
+
+
+def phase_trainers(ex81):
+    """Phase 13: the DiT Trainer's hooks at the 1.3B's full width, and the
+    adversarial autoencoder path at its published widths (f32, TF32 off).
+    Returns the launches of (a)'s two runs and the phase's record."""
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+    from scail_tpu_torch.evals.lpips import LPIPS
+
+    t_phase = time.perf_counter()
+    stats = {"seconds": {}}
+    t0 = time.perf_counter()
+    fit_counts = _trainers_dit_fit(ex81, stats)
+    t1 = time.perf_counter()
+    hook_counts = _trainers_dit_hooks(ex81, stats)
+    t2 = time.perf_counter()
+    with full_f32():
+        lpips = LPIPS(device="cuda").init_random_(torch.Generator(device="cuda").manual_seed(12))
+        _trainers_vq(stats, lpips)
+        t3 = time.perf_counter()
+        _trainers_tokenizer(stats, lpips)
+        t4 = time.perf_counter()
+        lpips_cpu = LPIPS().init_random_(torch.Generator().manual_seed(12))
+        _trainers_card_vs_cpu(stats, lpips_cpu)
+    stats["seconds"].update(dit_fit=t1 - t0, dit_hooks=t2 - t1, vq=t3 - t2, tokenizer=t4 - t3,
+                            card_vs_cpu=time.perf_counter() - t4)
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 13 (trainers): {stats['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stats["seconds"].items()) + ")")
+    print(json.dumps({"trainers": stats}), flush=True)
+    return fit_counts, hook_counts, stats
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
@@ -3856,6 +4519,8 @@ def main():
     parallel_counts, par = phase_parallel(ex81)
     eval_counts, ev = phase_evals(records[1]["outputs"][0], sta_record["outputs"][0])
     zoo_counts, pd_counts, image = phase_image()
+    fit_counts, hook_counts, trainers = phase_trainers(ex81)
+    _no_jax_loaded("the whole run")
 
     import torch
 
@@ -3882,8 +4547,8 @@ def main():
         f"{load['phase_s']:.1f} s; parallel phase {par['phase_s']:.1f} s; evals phase "
         f"{ev['phase_s']:.1f} s (the STA gate {ev['validate_weights']['seconds']:.1f} s); image "
         f"phase {image['phase_s']:.1f} s (SDXL UNet forward at CFG batch 2 "
-        f"{image['unet_ms_cfg2']:.1f} ms, decode {image['vae_decode_ms']:.1f} ms); "
-        f"whole run "
+        f"{image['unet_ms_cfg2']:.1f} ms, decode {image['vae_decode_ms']:.1f} ms); trainers "
+        f"phase {trainers['phase_s']:.1f} s; whole run "
         f"{time.perf_counter() - t_start:.0f} s; card {card}")
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
@@ -3892,7 +4557,8 @@ def main():
              "sample_cli_long": long_counts, "sample_cli_load": load_counts,
              **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts,
              "validate_weights": eval_counts, "dit_zoo_dpmpp2m": zoo_counts,
-             "pd_step": pd_counts}
+             "pd_step": pd_counts, "trainer_fit_evals": fit_counts,
+             "trainer_hooks_4layers": hook_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

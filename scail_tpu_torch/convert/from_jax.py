@@ -310,3 +310,132 @@ def clip_score_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
     sd["visual_projection.weight"] = _tensor(np.asarray(params["visual_projection"]["kernel"]).T)
     sd["text_projection.weight"] = _tensor(np.asarray(params["text_projection"]["kernel"]).T)
     return sd
+
+
+# ---------------------------------------------------------------------------
+# the autoencoder training stack (scail_tpu/autoencoding/)
+# ---------------------------------------------------------------------------
+_NORM_HOLDERS = ("norm1", "norm2", "norm", "norm_out")
+
+
+def vqmodel_state_dict_from_jax(params, movq: bool = False) -> Dict[str, torch.Tensor]:
+    """`VQModel.init_params` / `vqmodel_params_from_torch` pytree -> the port's
+    VQModel / MOVQ state dict: a normalize's {norm: ...} to its own name (to
+    `norm_layer` beside MOVQ's conv_y / conv_b), resample kernels to `.conv`,
+    the codebook to quantize.embedding.weight."""
+    sd = {}
+    for path, arr in _tree_paths(params):
+        parts = path.split("/")
+        if parts[:2] == ["quantize", "embedding"]:
+            sd["quantize.embedding.weight"] = _tensor(arr)
+            continue
+        names = []
+        for i, c in enumerate(parts[:-1]):
+            if c == "norm" and i and parts[i - 1] in _NORM_HOLDERS:
+                if movq and parts[0] == "decoder":
+                    names.append("norm_layer")
+                continue
+            names.append(c + ".conv" if c in ("downsample", "upsample") else c)
+        leaf, val = _torch_layout(parts[-1], arr)
+        sd[".".join(names + [leaf])] = _tensor(val)
+    return sd
+
+
+def ema_quantizer_state_dict_from_jax(state) -> Dict[str, torch.Tensor]:
+    """`init_ema_quantizer` / the new_state of `ema_vector_quantize` ->
+    EMAVectorQuantizer's buffers."""
+    return {f"embedding.{k}": _tensor(np.asarray(state[k]))
+            for k in ("weight", "cluster_size", "embed_avg")}
+
+
+def lfq_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_lfq` -> LFQ's project_in / project_out (empty when dim equals
+    the code bits)."""
+    return {f"{name}.{leaf}": _tensor(val) for name in ("project_in", "project_out")
+            if name in params for leaf, val in (_torch_layout(k, np.asarray(a))
+                                                for k, a in params[name].items())}
+
+
+def nlayer_discriminator_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_nlayer_discriminator` -> NLayerDiscriminator's `main.{i}.*`: the
+    first conv at 0, each [conv, bn] after it 3 indices apart, the logit conv
+    last; the BatchNorm running buffers at their initial values."""
+    sd = {}
+    layers = params["layers"]
+    idx = 0
+    for i, layer in enumerate(layers):
+        for k, a in layer["conv"].items():
+            leaf, val = _torch_layout(k, np.asarray(a))
+            sd[f"main.{idx}.{leaf}"] = _tensor(val)
+        if "bn" in layer:
+            bn = f"main.{idx + 1}"
+            sd[f"{bn}.weight"] = _tensor(np.asarray(layer["bn"]["scale"]))
+            sd[f"{bn}.bias"] = _tensor(np.asarray(layer["bn"]["bias"]))
+            c = sd[f"{bn}.weight"].shape[0]
+            sd[f"{bn}.running_mean"] = torch.zeros(c)
+            sd[f"{bn}.running_var"] = torch.ones(c)
+            sd[f"{bn}.num_batches_tracked"] = torch.zeros((), dtype=torch.long)
+        idx += 3 if "bn" in layer else 2
+    return sd
+
+
+_VIDEO_DISC_NAMES = {"in": "proj_in", "out": "proj_out"}
+
+
+def video_discriminator_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """`init_video_discriminator` -> VideoDiscriminator: blocks.{i}.* (the
+    feed-forward's in / out to proj_in / proj_out, the RMS norms' `scale`
+    kept), head/conv and head/linear to head_conv / head_linear; the
+    attention's `heads` count is structure, not a tensor."""
+    sd = {}
+    for path, arr in _tree_paths(params):
+        parts = path.split("/")
+        if parts[-1] == "heads":
+            continue
+        if parts[0] == "head":
+            parts = [f"head_{parts[1]}"] + parts[2:]
+        if "ff" in parts and parts[-2] in _VIDEO_DISC_NAMES:
+            parts[-2] = _VIDEO_DISC_NAMES[parts[-2]]
+        leaf, val = (parts[-1], arr) if parts[-1] == "scale" else _torch_layout(parts[-1], arr)
+        sd[".".join(parts[:-1] + [leaf])] = _tensor(val)
+    return sd
+
+
+def _conv_pair(prefix, p) -> Dict[str, torch.Tensor]:
+    out = {}
+    for k, a in p.items():
+        leaf, val = _torch_layout(k, np.asarray(a))
+        out[f"{prefix}.{leaf}"] = _tensor(val)
+    return out
+
+
+def _res_units(prefix, layer) -> Dict[str, torch.Tensor]:
+    units = layer["units"]
+    sd = {}
+    for j, u in enumerate(units):
+        pfx = prefix if len(units) == 1 else f"{prefix}.{j}"
+        sd.update(_conv_pair(f"{pfx}.fn.0.conv", u["conv"]))
+        sd.update(_conv_pair(f"{pfx}.fn.2", u["proj"]))
+        sd.update(_conv_pair(f"{pfx}.fn.4.to_k", u["se"]["to_k"]))
+        sd.update(_conv_pair(f"{pfx}.fn.4.net.0", u["se"]["net0"]))
+        sd.update(_conv_pair(f"{pfx}.fn.4.net.2", u["se"]["net2"]))
+    return sd
+
+
+def video_tokenizer_state_dict_from_jax(params, plan) -> Dict[str, torch.Tensor]:
+    """`VideoTokenizer.init_params` -> the port's VideoTokenizer (the
+    reference's names, as video_tokenizer_params_from_torch reads them);
+    `plan` is the tokenizer's layer plan (VideoTokenizer.plan)."""
+    n = len(plan)
+    sd = {**_conv_pair("conv_in.conv", params["conv_in"]),
+          **_conv_pair("conv_out.conv", params["conv_out"])}
+    for i, ((typ, *_), layer) in enumerate(zip(plan, params["enc_layers"])):
+        sd.update(_res_units(f"encoder_layers.{i}", layer) if typ == "residual"
+                  else _conv_pair(f"encoder_layers.{i}.conv", layer["conv"]))
+    for j, ((typ, *_), layer) in enumerate(zip(reversed(plan), params["dec_layers"])):
+        sd.update(_res_units(f"decoder_layers.{j}", layer) if typ == "residual"
+                  else _conv_pair(f"decoder_layers.{j}.net.0", layer["conv"]))
+    sd[f"encoder_layers.{n}.1.weight"] = _tensor(np.asarray(params["final_norm"]["scale"]))
+    sd[f"encoder_layers.{n}.1.bias"] = _tensor(np.asarray(params["final_norm"]["bias"]))
+    sd.update({f"quantizers.{k}": v for k, v in lfq_state_dict_from_jax(params["lfq"]).items()})
+    return sd

@@ -30,7 +30,7 @@ import torch.distributed as dist
 # calls by kind, and the bytes this rank sent in them (plain ints; reset with
 # reset_collective_counts)
 COLLECTIVES = {"all_to_all": 0, "all_reduce": 0, "all_gather": 0, "reduce_scatter": 0,
-               "p2p": 0}
+               "p2p": 0, "broadcast": 0}
 COLLECTIVE_BYTES = dict.fromkeys(COLLECTIVES, 0)
 
 
@@ -63,6 +63,19 @@ def all_reduce_(x, mesh, axis, op: str = "sum"):
     dist.all_reduce(x, op=_OPS[op], group=mesh.group(axis))
     # a ring all-reduce sends 2 (p - 1) / p of the tensor
     _count("all_reduce", 2 * (p - 1) * _nbytes(x) // p)
+    return x
+
+
+def broadcast_(x, mesh, axis, src: int = 0):
+    """In-place broadcast of x over `axis` from the group's rank `src`; the
+    call counts on every rank, the bytes on the source (p - 1 copies)."""
+    p = mesh.size(axis)
+    if p == 1:
+        return x
+    group = mesh.group(axis)
+    dist.broadcast(x, src=dist.get_global_rank(group, src), group=group)
+    _count("broadcast", (p - 1) * _nbytes(x) if dist.get_group_rank(group, dist.get_rank())
+           == src else 0)
     return x
 
 

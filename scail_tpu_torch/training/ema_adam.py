@@ -84,9 +84,10 @@ class FusedEmaAdam:
 
 def clip_by_global_norm_(grads: Dict[str, torch.Tensor], max_norm: float) -> torch.Tensor:
     """Scale grads in place to global L2 norm <= max_norm (optax's rule:
-    t / norm * max_norm when norm >= max_norm).  Returns the norm before."""
+    t / norm * max_norm unless norm < max_norm, so a non-finite norm makes
+    every gradient non-finite).  Returns the norm before."""
     norm = global_norm(grads)
-    if norm >= max_norm:
+    if not norm < max_norm:
         for g in grads.values():
             g.div_(norm.to(g.dtype)).mul_(max_norm)
     return norm

@@ -1,8 +1,13 @@
-"""Training engine (counterpart of scail_tpu/training/engine.py): the
-grad-accumulation-aware train loop with NaN skip, clipping by global norm
-chained with fused EMA-Adam under the annealing schedule, JSONL metrics,
-periodic and final checkpoints (asynchronous, with the EMA double-save), and
-resume from `latest`.
+"""Training engine (counterpart of scail_tpu/training/engine.py:31-56 and
+:161-348): the grad-accumulation-aware train loop with NaN skip (switchable,
+`skip_nan`), clipping by global norm chained with fused EMA-Adam under the
+annealing schedule, metrics through utils/metrics_writers.MetricsWriter
+(JSONL, TensorBoard where it imports, wandb when asked and importable),
+periodic and final checkpoints (asynchronous, with the EMA double-save),
+evaluation every `eval_interval` steps, the replica drift check every
+`check_param_sync_interval` steps (training/sync.py), the clean exit at
+`exit_interval`, and resume from `latest`.  "data loader" and "train_step"
+are timed by utils/timers.Timers, synchronised with the card.
 
 The optimizer covers the parameters that require grad (all of the DiT's in a
 full fine-tune, the LoRA factors under training/lora.py); the checkpoint
@@ -24,16 +29,17 @@ all-reduce each, and divided by the data size, so a step is the one-rank
 step on the global batch; the global norm counts each sharded tensor's
 slices once; a step is skipped on every rank or on none.  Every rank
 draws from the same seed: the loss function draws for the global batch and
-keeps its data slice (engine.loss).  Checkpoints hold full state dicts,
-gathered on every rank and written by rank 0, so a sharded run's checkpoint
-loads into a one-card run and the other way round; resume re-shards.
+keeps its data slice (engine.loss).  `evaluate` draws from a generator of its
+own, seeded from the config's seed, the step and 977 + i (JAX folds 977 + i
+into the step key), so evaluation never moves the training stream.
+Checkpoints hold full state dicts, gathered on every rank and written by
+rank 0, so a sharded run's checkpoint loads into a one-card run and the
+other way round; resume re-shards.
 """
 
 from __future__ import annotations
 
 import dataclasses
-import json
-import os
 import time
 from typing import Any, Callable, Dict, Iterator, Optional
 
@@ -46,6 +52,9 @@ from scail_tpu_torch.training.checkpoint import CheckpointManager, load_checkpoi
 from scail_tpu_torch.training.ema_adam import (EmaAdamState, FusedEmaAdam, clip_by_global_norm_,
                                                swap_in_ema)
 from scail_tpu_torch.training.lr_schedules import annealing_lr
+from scail_tpu_torch.utils.logging import print_rank0
+from scail_tpu_torch.utils.metrics_writers import MetricsWriter
+from scail_tpu_torch.utils.timers import Timers
 
 
 @dataclasses.dataclass
@@ -61,10 +70,17 @@ class TrainConfig:
     ema_decay: float = 0.9999
     log_interval: int = 10
     save_interval: int = 500
+    eval_interval: int = 500
+    eval_iters: int = 8
+    exit_interval: Optional[int] = None  # clean coordinated exit
     save_dir: Optional[str] = None
-    tensorboard: bool = False
+    tensorboard: bool = True  # <save_dir>/runs/<experiment_name or "train">
     wandb: bool = False
+    wandb_project: str = "scail_tpu"
+    experiment_name: Optional[str] = None
     seed: int = 1234
+    skip_nan: bool = True  # skip the whole update on a non-finite loss or gradient
+    check_param_sync_interval: Optional[int] = None
     async_save: bool = True  # write checkpoints in a background thread
     keep_last_checkpoints: int = 3
     keep_every_checkpoints: int = 0
@@ -108,10 +124,6 @@ class Trainer:
         """mesh: the parallel.mesh.Mesh the model is sharded over (None or a
         trivial mesh: one rank); rules: the parallel.sharding.PathRules it
         was sharded by, needed under a non-trivial mesh."""
-        if config.tensorboard or config.wandb:
-            raise NotImplementedError("TensorBoard and wandb logging are not ported (ROADMAP "
-                                      "Queue 1 item 12, the metric writers): metrics go to "
-                                      "<save_dir>/metrics.jsonl")
         self.config = config
         self.model = model
         self.model_config = model_config
@@ -130,15 +142,21 @@ class Trainer:
         self.optimizer = FusedEmaAdam(weight_decay=config.weight_decay,
                                       ema_decay=config.ema_decay)
         self.opt_state = self.optimizer.init(self.params)
+        self.device = device
         self.generator = torch.Generator(device=device).manual_seed(config.seed)
         self.step = 0
         self.skipped = 0
         self._ckpt = None
+        self.timers = Timers(device)
+        self.metrics_writer = MetricsWriter(
+            config.save_dir if self._writer_rank else None,
+            enable_tensorboard=config.tensorboard, enable_wandb=config.wandb,
+            wandb_project=config.wandb_project, run_name=config.experiment_name)
 
     # ------------------------------------------------------------------
     def train_step(self, batch: Dict[str, Any]) -> Dict[str, Any]:
-        """One optimizer step over `grad_accum` microbatches; the whole update
-        is skipped when the loss or a gradient is not finite."""
+        """One optimizer step over `grad_accum` microbatches; with skip_nan the
+        whole update is skipped when the loss or a gradient is not finite."""
         cfg = self.config
         for p in self.params.values():
             p.grad = None
@@ -161,7 +179,7 @@ class Trainer:
             for axis in (REPLICA_AXIS, MODEL_AXIS):  # the two together: every rank
                 comm.all_reduce_(flag, self.mesh, axis, "min")
             finite = bool(flag > 0)
-        ok = finite
+        ok = finite if cfg.skip_nan else True
         if self.mesh is None:
             grad_norm = clip_by_global_norm_(grads, cfg.clip_grad)
         else:
@@ -205,19 +223,28 @@ class Trainer:
                 replicated = replicated + sq
         sharded = comm.all_reduce_(sharded.reshape(1).clone(), self.mesh, MODEL_AXIS)[0]
         norm = torch.sqrt(sharded + replicated)
-        if norm >= max_norm:
+        if not norm < max_norm:  # optax's rule, as clip_by_global_norm_
             for g in grads.values():
                 g.div_(norm.to(g.dtype)).mul_(max_norm)
         return norm
 
-    def fit(self, data_iter: Iterator[Dict[str, Any]]) -> list:
-        """Train from the current step to train_iters; returns each step's
-        metrics."""
+    def fit(self, data_iter: Iterator[Dict[str, Any]],
+            eval_data_iter: Optional[Iterator[Dict[str, Any]]] = None,
+            eval_loss_fn: Optional[Callable] = None) -> list:
+        """Train from the current step to train_iters, or to the first
+        multiple of exit_interval; returns each step's metrics.  Within a
+        step: log, save, evaluate (eval_loss_fn(generator, batch) on
+        eval_data_iter), check the replicas, exit; the final save follows."""
         cfg = self.config
         history, losses = [], []
         t_last = time.perf_counter()
         for it in range(self.step, cfg.train_iters):
-            metrics = self.train_step(next(data_iter))
+            self.timers("data loader").start()
+            batch = next(data_iter)
+            self.timers("data loader").stop()
+            self.timers("train_step").start()
+            metrics = self.train_step(batch)
+            self.timers("train_step").stop()
             history.append(metrics)
             losses.append(metrics["loss"])
             step = it + 1
@@ -226,13 +253,22 @@ class Trainer:
                 record = {"iter": step, "loss": sum(losses) / len(losses),
                           "lr": self.schedule(step), "grad_norm": metrics["grad_norm"],
                           "it_per_s": cfg.log_interval / elapsed, "skipped": self.skipped}
-                print(f"iter {step}/{cfg.train_iters} | loss {record['loss']:.4f} | "
-                      f"lr {record['lr']:.3e} | grad_norm {record['grad_norm']:.3f} | "
-                      f"{record['it_per_s']:.2f} it/s | skipped {self.skipped}", flush=True)
+                print_rank0(f"iter {step}/{cfg.train_iters} | loss {record['loss']:.4f} | "
+                            f"lr {record['lr']:.3e} | grad_norm {record['grad_norm']:.3f} | "
+                            f"{record['it_per_s']:.2f} it/s | skipped {self.skipped}")
                 self._log_metrics(record)
                 losses, t_last = [], time.perf_counter()
             if cfg.save_dir and step % cfg.save_interval == 0:
                 self.save(step)
+            if (eval_data_iter is not None and eval_loss_fn is not None
+                    and step % cfg.eval_interval == 0):
+                self.evaluate(eval_data_iter, eval_loss_fn)
+            if cfg.check_param_sync_interval and step % cfg.check_param_sync_interval == 0:
+                drift = self.check_param_sync()
+                print_rank0(f"param sync check at iter {step}: max drift {drift}")
+            if cfg.exit_interval and step % cfg.exit_interval == 0:
+                print_rank0(f"exit-interval hit at iter {step}; clean exit")
+                break
         if cfg.save_dir:
             self.save(self.step)
         self.wait_for_save()  # the last write has landed, or its failure raises
@@ -244,10 +280,39 @@ class Trainer:
         return self.mesh is None or torch.distributed.get_rank() == 0
 
     def _log_metrics(self, record: Dict) -> None:
-        if self.config.save_dir:
-            os.makedirs(self.config.save_dir, exist_ok=True)
-            with open(os.path.join(self.config.save_dir, "metrics.jsonl"), "a") as f:
-                f.write(json.dumps(record) + "\n")
+        """JSONL + TensorBoard + optional wandb (sat/training/utils.py:29-64)."""
+        self.metrics_writer.write(record)
+        self.metrics_writer.flush()
+
+    def _eval_generator(self, i: int) -> torch.Generator:
+        """The random stream of evaluation batch i at the current step: its
+        own generator, the training stream untouched."""
+        seed = ((self.config.seed * 1_000_003 + self.step) * 1_000_033 + 977 + i) % (1 << 63)
+        return torch.Generator(device=self.device).manual_seed(seed)
+
+    def evaluate(self, data_iter, eval_loss_fn) -> float:
+        """The mean of eval_iters losses eval_loss_fn(generator, batch), without
+        gradients; under a mesh, the mean over the data ranks
+        (deepspeed_training.py:659-744)."""
+        vals = []
+        with torch.no_grad():
+            for i in range(self.config.eval_iters):
+                loss = eval_loss_fn(self._eval_generator(i), next(data_iter)).detach().float()
+                if self.mesh is not None:
+                    loss = comm.all_reduce_(loss.reshape(1).clone(), self.mesh,
+                                            DATA_AXIS)[0] / self.mesh.size(DATA_AXIS)
+                vals.append(float(loss))
+        loss = sum(vals) / len(vals)
+        print_rank0(f"eval loss {loss:.4f}")
+        return loss
+
+    def check_param_sync(self, atol: float = 0.0) -> float:
+        """The largest drift between the copies of a trained parameter over
+        the ranks that hold the same slice (training/sync.py)."""
+        from scail_tpu_torch.training.sync import check_param_sync
+
+        return check_param_sync(dict(self.model.named_parameters()), atol, mesh=self.mesh,
+                                rules=self.rules)
 
     # ------------------------------------------------------------------
     def _full(self, sd: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
@@ -304,8 +369,8 @@ class Trainer:
                                            async_save=cfg.async_save)
         path = self._ckpt.save(iteration, state, model_config=self.model_config,
                                ema_params=ema)
-        print(f"saved checkpoint iter {iteration} -> {path}"
-              + (" (async)" if cfg.async_save else ""), flush=True)
+        print_rank0(f"saved checkpoint iter {iteration} -> {path}"
+                    + (" (async)" if cfg.async_save else ""))
         return path
 
     def wait_for_save(self) -> None:
@@ -319,9 +384,9 @@ class Trainer:
         self.wait_for_save()
         d = save_dir or self.config.save_dir
         if d is None or read_latest(d) is None:
-            print("no checkpoint to resume from; starting fresh", flush=True)
+            print_rank0("no checkpoint to resume from; starting fresh")
             return 0
         state, it = load_checkpoint(d)
         self.load_state_dict(state)
-        print(f"resumed from iter {it}", flush=True)
+        print_rank0(f"resumed from iter {it}")
         return it

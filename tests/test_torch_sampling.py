@@ -418,7 +418,10 @@ def test_port_never_imports_jax():
         "'parallel.sharding', 'parallel.ulysses', 'parallel.ring', "
         "'parallel.cross_entropy', 'diffusion.embedders', 'models.unet', "
         "'autoencoding.vqgan', 'autoencoding.regularizers', 'autoencoding.autoencoder_kl', "
-        "'inference.api', 'inference.engine', 'inference.helpers', 'inference.watermark'):\n"
+        "'inference.api', 'inference.engine', 'inference.helpers', 'inference.watermark', "
+        "'utils.logging', 'utils.timers', 'utils.metrics_writers', 'utils.profiling', "
+        "'training.sync', 'autoencoding.discriminator', 'autoencoding.gan_loss', "
+        "'autoencoding.video_tokenizer', 'autoencoding.engine'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -445,7 +448,10 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                 "parallel/ring.py", "parallel/cross_entropy.py", "diffusion/embedders.py",
                 "models/unet.py", "autoencoding/vqgan.py", "autoencoding/regularizers.py",
                 "autoencoding/autoencoder_kl.py", "inference/api.py", "inference/engine.py",
-                "inference/helpers.py", "inference/watermark.py"):
+                "inference/helpers.py", "inference/watermark.py", "utils/logging.py",
+                "utils/timers.py", "utils/metrics_writers.py", "utils/profiling.py",
+                "training/sync.py", "autoencoding/discriminator.py", "autoencoding/gan_loss.py",
+                "autoencoding/video_tokenizer.py", "autoencoding/engine.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}

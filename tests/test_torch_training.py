@@ -458,12 +458,6 @@ def test_first_frame_noise_draws_log_normal_sigmas_from_the_generator():
     assert abs(log_sigma.std().item() - 0.5) < 0.05
 
 
-def test_trainer_refuses_tensorboard_and_wandb():
-    for flag in ("tensorboard", "wandb"):
-        with pytest.raises(NotImplementedError, match="metrics.jsonl"):
-            _toy_trainer(**{flag: True})
-
-
 def _toy_engine(real_engine):
     """Wrap the port's VideoDiffusionEngine so the YAML's text, CLIP and VAE
     wrappers get toy widths; init_params then initialises only the DiT.
