@@ -42,19 +42,21 @@ Phases (any failure exits non-zero; no exception is swallowed):
   6b. train STA -- 2 steps at full width and depth from a YAML with
                  `attn_impl: sta` (exact K7/K8/K2/K3/K5 launches), gradients
                  kernel vs plain path.
-  6c. remat policies -- the train CLI at full width and depth, 2 steps each,
-                 from YAML copies that set `remat_policy`: dense save_attn,
-                 save_attn_frac 0.7 and offload_attn (K1 30 / 39 / 30 a step
-                 instead of 60), STA save_attn (K7 with the LSE 60 instead of
-                 120, K2 30 instead of 60); each one's step-1 loss bit-equal to
-                 `default`'s of phase 6 / 6b from the same seed, its step-1
+  6c. remat policies -- the train CLI, 2 steps each, from YAML copies that
+                 set `remat_policy`: dense save_attn, save_attn_frac 0.7 and
+                 offload_attn at full width and CUT_LAYERS (4) layers (K1 4 / 6
+                 / 4 a step instead of 8), STA save_attn at full width and
+                 depth (K7 with the LSE 60 instead of 120, K2 30 instead of
+                 60); each one's step-1 loss bit-equal to `default`'s at the
+                 same depth and seed (phase 6's 4-layer save run, phase 6b), its step-1
                  gradients within 1e-3 relative L2 of them, peak and step
                  seconds, offload_attn's peak within 0.5 GB of `default`'s.
                  Before each, on a 2-layer DiT at full width and 48,832 tokens,
                  every kept flash output against a fresh launch on the q, k
                  and v the recompute gives: bit-equal.
-  6d. LoRA    -- the train CLI with --lora-rank 16 at full width and depth, 2
-                 steps: the launches of phase 6, every base tensor bit-equal
+  6d. LoRA    -- the train CLI with --lora-rank 16 at full width and
+                 CUT_LAYERS layers, 2 steps: the launches of a full fine-tune
+                 at that depth, every base tensor bit-equal
                  afterwards, every lora_b non-zero, the peak; merge_lora's
                  forward against the factored one (relative L2 <= 3e-2); then
                  save and resume under --lora-rank at 4 layers (<iter>/ema
@@ -76,11 +78,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  built one parameter at a time (its build peak is checked to
                  hold no f32 copy) and its int8 kernel path vs its plain path on
                  a small input.
-  5c. CLI long clip -- the sampling CLI with the 1.3B YAML and
-                 configs/sampling/pose_cli_long.yaml (RFSamplerLong) on a
-                 161-frame 512x896 synthetic example, 2 steps: 41 latent frames
-                 in 3 tiles of 21, 8 DiT forwards at CFG batch 2 and 48,832
-                 tokens, exactly 240 K1 + 240 K3 + 488 K9 + 240 K10; an .mp4 of
+  5c. CLI long clip -- the sampling CLI with the 1.3B YAML cut to CUT_LAYERS
+                 layers and configs/sampling/pose_cli_long.yaml (RFSamplerLong)
+                 on a 161-frame 512x896 synthetic example, 2 steps: 41 latent
+                 frames in 3 tiles of 21, 8 DiT forwards at CFG batch 2 and
+                 48,832 tokens, exactly 32 K1 + 32 K3 + 72 K9 + 32 K10; an .mp4 of
                  161 x 512 x 896 frames, per-phase seconds and peak GB.  Runs
                  after phase 5b.
   9. load     -- the released files' layouts at full width, written from an
@@ -107,10 +109,12 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  one device; this harness stages gloo's point-to-point
                  transfers through host memory, `_stage_p2p_through_host`),
                  1.3B weights from a seed on both: the Ulysses forward at
-                 seq 2, 30 layers, CFG batch 2, 48,832 tokens (per rank
-                 exactly K2 30, K3 30, K10 60, K9 61, all-to-all 120); at 4
+                 seq 2, CUT_LAYERS layers, CFG batch 2, 48,832 tokens (per
+                 rank exactly K2 4, K3 4, K10 8, K9 9, all-to-all 16); at 4
                  layers the ring at seq 2 (K2 8, p2p 4), TP at model 2
-                 (all-reduce 32), STA under Ulysses and under TP; each
+                 (all-reduce 32), STA under Ulysses and under TP; the MoE
+                 DiT (8 experts, top 2) at 2 layers under expert parallelism
+                 at model 2, 4 experts a rank (all-reduce 16); each
                  against the one-process kernel path on rank 0, relative L2
                  <= 3e-2.  The ring and Ulysses attention alone at (1,
                  48,832, 12, 128), forward and backward (ring: K2 2, K5 2 + 2,
@@ -169,11 +173,11 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  launches; TASDLoss and TASDLossRF on a plain torch network,
                  card against CPU within 1e-5.
   13. trainers -- (a) Trainer.fit through the train CLI on the 1.3B at full
-                 width and depth: train_iters 4, exit_interval 2,
+                 width and CUT_LAYERS layers: train_iters 4, exit_interval 2,
                  eval_interval 1, eval_iters 1 on the step's example: 2 steps
-                 and 2 evaluations, each evaluation exactly EVAL_FORWARD_LAUNCHES
+                 and 2 evaluations, each evaluation exactly _eval_launches
                  (one forward without remat), the timers' ms per step and
-                 report_memory (no save at full depth: the disk-write limit);
+                 report_memory (no save: the hooks' run below saves);
                  then at 4 layers with --save: step 1's loss made NaN under
                  skip_nan (skipped), step 2 inside profile_trace with an
                  annotate range (the trace file holds it), step 3's loss NaN
@@ -197,6 +201,28 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  tokenizer at init_dim 8, LFQ at 2^8 codes, both losses with
                  their gradients.
 
+  14. zoo     -- one model at a time, each freed before the next: (a) the SVD
+                 VideoUNet at Stability's svd.yaml widths (1.5 B, f32, TF32
+                 off), one forward of 14 frames at 576x1024 at CFG batch 2
+                 (28 frames), ms and peak GB; card against CPU on 4 frames of
+                 a 16x16 latent, relative L2 <= 1e-4.  (b) The MoE DiT at
+                 scail_1p3b.yaml's widths with 8 experts, top 2 (6.6 B expert
+                 parameters, bf16): one forward at CFG batch 2 and 48,832
+                 tokens with exactly K1 30, K3 30, K9 61, K10 30; its kernel
+                 path against its plain path at 4 layers, relative L2 <=
+                 3e-2.  (d) Llama-2-7B's widths: filling_sequence fills 32
+                 tokens after a 2 x 128 prompt, greedy through the KV cache,
+                 greedy by full recompute and top-k 40 / top-p 0.9, ms a token
+                 and peak GB in bf16; the cached greedy tokens equal full
+                 recompute's in f32.  (e) One 128-token prompt forward of
+                 Mixtral-8x7B (2 of 32 layers), GLM-4-9B, ChatGLM-6B,
+                 ChatGLM2-6B, GLM-130B (2 of 70 layers), GPT-2, GPT-Neo-1.3B,
+                 GLM-large and cuda2d (2 layers at CogView's width, layout
+                 (64, 1088, 5184), kernels 9 / 7) in bf16, ms and peak GB; each
+                 at 2 layers in f32 against the CPU (GLM-130B at width 4,096),
+                 relative L2 <= 1e-4.  Each step's seconds.  (c), the MoE DiT
+                 under expert parallelism, runs in phase 10.
+
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
 kernel (K10) on k in every dense layer, on q and k under STA and int8-QK, and
@@ -208,9 +234,9 @@ main paths (`launches_by_path`: the sampling CLI of phases 5, 5b and 5c, the
 train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
 phases 7, 7b and 8, the --load request of phase 9, the two ranks of phase
 10 (their runs summed), the two sampling passes of validate_weights in
-phase 11, phase 12's DiT under DPMPP2MSampler and its PD step, and phase
-13's Trainer.fit with its evaluations and its 4-layer hook run, each
-counted from 0, and their sum), its largest
+phase 11, phase 12's DiT under DPMPP2MSampler and its PD step, phase
+13's Trainer.fit with its evaluations and its 4-layer hook run, and phase
+14's MoE DiT forward (`dit_moe`), each counted from 0, and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
 larger of bytes moved over 3.35 TB/s and
@@ -230,6 +256,7 @@ ptxas C7515 / C7512 note (serialised wgmmas).  The last line is
 {"ok": true, "device": ...}.
 """
 
+import contextlib
 import json
 import os
 import re
@@ -1394,21 +1421,42 @@ def phase_cli():
 
 
 # the DiT's launches per training step with remat: forward + recompute for the
-# forward kernels, one each for the two backward kernels, in each of 30 layers;
+# forward kernels, one each for the two backward kernels, in each of L layers;
 # K9 twice per layer site and once in the final layer (not recomputed), K10
 # on k in the forward and the recompute and on q in the backward (the K9 and
 # K10 backwards are plain torch)
-TRAIN_LAUNCHES_PER_STEP = {"flash_attention_rope": 60, "dual_cross_attention": 60,
-                           "flash_attention_bwd_dq": 30, "flash_attention_bwd_dkv": 30,
-                           "adaln_layer_norm": 121, "rotary": 90}
+def _train_launches(L):
+    return {"flash_attention_rope": 2 * L, "dual_cross_attention": 2 * L,
+            "flash_attention_bwd_dq": L, "flash_attention_bwd_dkv": L,
+            "adaln_layer_norm": 4 * L + 1, "rotary": 3 * L}
+
+
+# one evaluation forward (no remat: evaluate is under no_grad): K1 and K3 a
+# layer, K9 2L + 1, K10 on k
+def _eval_launches(L):
+    return {"flash_attention_rope": L, "dual_cross_attention": L,
+            "adaln_layer_norm": 2 * L + 1, "rotary": L}
+
+
+TRAIN_LAUNCHES_PER_STEP = _train_launches(30)
 # One checkpoint of the 30-layer trainer state (f32 params, two Adam moments,
 # EMA shadow) is ~23.4 GiB, and the chip machine allows ~45 GiB of disk writes
 # per run: save and resume are checked on the same YAML cut to this depth.
 RESUME_LAYERS = 4
+# the depth at which the earlier paths that only repeat the main path's
+# layers run (6c's dense remat policies, 6d's LoRA steps, 5c's long clip,
+# 10's Ulysses forward and 13 (a)'s Trainer.fit): the whole run must stay
+# inside its time limit as phases are added.  6c's dense baseline is phase
+# 6's save run, at the same depth
+CUT_LAYERS = RESUME_LAYERS
 
 
-TRAIN_WATCHED = ("layers.0.qkv.weight", "layers.29.mlp_out.weight", "final_layer.linear.weight",
-                 "patch_embed.proj.weight")
+def _watched(L):
+    return ("layers.0.qkv.weight", f"layers.{L - 1}.mlp_out.weight", "final_layer.linear.weight",
+            "patch_embed.proj.weight")
+
+
+TRAIN_WATCHED = _watched(30)
 
 
 def _train(argv, want_per_step, label, watched=TRAIN_WATCHED, on_start=None,
@@ -1606,8 +1654,7 @@ def phase_train(ex81):
 
     base = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
     argv = _train_argv(base, _data_root(ex81))
-    trainer, counts, stats = _train(argv, TRAIN_LAUNCHES_PER_STEP, "train",
-                                    on_first_grads=_keep_grads("dense"))
+    trainer, counts, stats = _train(argv, TRAIN_LAUNCHES_PER_STEP, "train")
     BASELINE["dense"].update(loss=stats["losses"][0], peak_gb=stats["peak_gb"],
                              step_s=stats["step_s"])
     stats["grad_rel"] = _grad_parity(trainer.model, {"attn_impl": "auto"}, {"attn_impl": "xla"},
@@ -1623,7 +1670,13 @@ def phase_train(ex81):
     short = _train_argv(cut_yaml, _data_root(ex81)) + ["--save", save]
     t0 = time.perf_counter()
     with _log_every_step():
-        first = train.main(short + ["--train-iters", "2"])
+        # this run's step 1 is the `default` baseline of phase 6c's dense
+        # policies (the same YAML at RESUME_LAYERS layers, the same seed)
+        torch.cuda.reset_peak_memory_stats()
+        with _first_grads(BASELINE["dense_cut"]):
+            first = train.main(short + ["--train-iters", "2"])
+        BASELINE["dense_cut"].update(loss=first.history[0]["loss"],
+                                     peak_gb=torch.cuda.max_memory_allocated() / 1e9)
         backends = first.metrics_writer.backends
         saved = sum(os.path.getsize(os.path.join(d, n)) for d, _, ns in os.walk(save)
                     for n in ns if not d.startswith(os.path.join(save, "runs")))
@@ -1654,11 +1707,14 @@ def phase_train(ex81):
 # backward of each windowed call (K8) and of the ref rows (K5)
 STA_DIT_LAUNCHES = {"sta_attention_fwd": 60, "flash_attention": 30, "dual_cross_attention": 30,
                     "adaln_layer_norm": 61, "rotary": 60}
-STA_TRAIN_LAUNCHES_PER_STEP = {"sta_attention_fwd_lse": 120, "flash_attention": 60,
-                               "dual_cross_attention": 60, "sta_attention_bwd_dq": 60,
-                               "sta_attention_bwd_dkv": 60, "flash_attention_bwd_dq": 30,
-                               "flash_attention_bwd_dkv": 30, "adaln_layer_norm": 121,
-                               "rotary": 120}
+def _sta_train_launches(L):
+    return {"sta_attention_fwd_lse": 4 * L, "flash_attention": 2 * L,
+            "dual_cross_attention": 2 * L, "sta_attention_bwd_dq": 2 * L,
+            "sta_attention_bwd_dkv": 2 * L, "flash_attention_bwd_dq": L,
+            "flash_attention_bwd_dkv": L, "adaln_layer_norm": 4 * L + 1, "rotary": 4 * L}
+
+
+STA_TRAIN_LAUNCHES_PER_STEP = _sta_train_launches(30)
 # a small latent (T, H, W) at which the DiT's default STA runs with the
 # windowed pose and the pose-kv window: Hp 32, Wp 8, ts 192, pose tiles of 48
 STA_SMALL = (3, 64, 16)
@@ -1774,7 +1830,7 @@ def phase_train_sta(ex81):
         yaml.safe_dump(cfg, f)
     trainer, counts, stats = _train(_train_argv(sta_yaml, _data_root(ex81)),
                                     STA_TRAIN_LAUNCHES_PER_STEP, "train STA",
-                                    on_first_grads=_keep_grads("sta"))
+                                    on_first_grads=_keep_grads(BASELINE["sta"]))
     BASELINE["sta"].update(loss=stats["losses"][0], peak_gb=stats["peak_gb"],
                            step_s=stats["step_s"])
     stats["grad_rel"] = _grad_parity(trainer.model, {"sta_impl": "auto"}, {"sta_impl": "xla"},
@@ -1785,19 +1841,19 @@ def phase_train_sta(ex81):
     return counts, stats
 
 
-# phase 6c: the remat policies that keep the flash outputs.  Per training
-# step, K1 (dense) launches once per layer in the forward and again in the
-# recompute of the layers that do not keep their outputs: 30 under save_attn
-# and offload_attn, 30 + 9 under save_attn_frac 0.7 (21 head layers); under
+# phase 6c: the remat policies that keep the flash outputs, at L layers.  Per
+# training step, K1 (dense) launches once per layer in the forward and again
+# in the recompute of the layers that do not keep their outputs: L under
+# save_attn and offload_attn, 2L - int(0.7 L) under save_attn_frac 0.7; under
 # STA save_attn, K7 with the LSE (video and pose calls) and K2 (ref rows)
 # launch in the forward only.  Everything else is as under `default`.
-REMAT_POLICY_LAUNCHES = {
-    "save_attn": {**TRAIN_LAUNCHES_PER_STEP, "flash_attention_rope": 30},
-    "save_attn_frac": {**TRAIN_LAUNCHES_PER_STEP, "flash_attention_rope": 39},
-    "offload_attn": {**TRAIN_LAUNCHES_PER_STEP, "flash_attention_rope": 30},
-}
-STA_SAVE_ATTN_LAUNCHES_PER_STEP = {**STA_TRAIN_LAUNCHES_PER_STEP, "sta_attention_fwd_lse": 60,
-                                   "flash_attention": 30}
+def _policy_launches(label, L):
+    if label == "sta_save_attn":
+        return dict(_sta_train_launches(L), sta_attention_fwd_lse=2 * L, flash_attention=L)
+    k1 = {"save_attn": L, "offload_attn": L, "save_attn_frac": 2 * L - int(0.7 * L)}[label]
+    return dict(_train_launches(L), flash_attention_rope=k1)
+
+
 # each policy's step-1 parameter gradients against `default`'s from the same
 # seed: relative L2 (the same kernels; only the recompute differs)
 POLICY_GRAD_REL_TOL = 1e-3
@@ -1805,27 +1861,50 @@ POLICY_GRAD_REL_TOL = 1e-3
 # may pass `default`'s by no more than this (GB)
 OFFLOAD_PEAK_SLACK_GB = 0.5
 LORA_RANK = 16
-# merge_lora's forward against the factored one (bf16 compute, 30 layers)
+# merge_lora's forward against the factored one (bf16 compute)
 LORA_MERGE_REL_TOL = DIT_REL_TOL
 
-# `default`'s step-1 loss and gradients (on the host), dense and STA, from
-# phases 6 and 6b
-BASELINE = {"dense": {}, "sta": {}}
+# `default`'s step-1 loss, peak and step seconds: dense and STA at full depth
+# (phases 6 and 6b, with STA's step-1 gradients on the host), dense at
+# CUT_LAYERS layers (phase 6's save run, with its gradients)
+BASELINE = {"dense": {}, "sta": {}, "dense_cut": {}}
 
 
-def _keep_grads(path):
+def _keep_grads(into):
     def keep(grads):
-        BASELINE[path]["grads"] = {n: g.detach().to("cpu", copy=True) for n, g in grads.items()}
+        into["grads"] = {n: g.detach().to("cpu", copy=True) for n, g in grads.items()}
     return keep
 
 
-def _grads_vs_baseline(path, out):
+@contextlib.contextmanager
+def _first_grads(into):
+    """Keep the first step's parameter gradients (before clipping) of the
+    train CLI run inside, on the host, in into["grads"]."""
+    import scail_tpu_torch.training.engine as engine_mod
+
+    real = engine_mod.clip_by_global_norm_
+    keep = _keep_grads(into)
+
+    def clip(grads, max_norm):
+        if "grads" not in into:
+            keep(grads)
+        return real(grads, max_norm)
+
+    engine_mod.clip_by_global_norm_ = clip
+    try:
+        yield
+    finally:
+        engine_mod.clip_by_global_norm_ = real
+
+
+def _grads_vs_baseline(baseline, path, out):
     """on_first_grads hook: the relative L2 distance of the step-1 gradients
-    from `default`'s, one tensor on the card at a time, into out["rel"]."""
+    from `default`'s (baseline["grads"]), one tensor on the card at a time,
+    into out["rel"]."""
     import torch
 
     def compare(grads):
-        base = BASELINE[path]["grads"]
+        base = baseline["grads"]
         if set(grads) != set(base):
             fail(f"{path}: the gradients' names differ from `default`'s")
         diff = ref = torch.zeros((), dtype=torch.float64, device="cuda")
@@ -1899,46 +1978,47 @@ def _stash_check(policy, **params):
 
 
 def phase_train_remat(ex81):
-    """Phase 6c: the train CLI at full width and depth under each remat
-    policy that keeps the flash outputs (dense save_attn, save_attn_frac 0.7,
-    offload_attn; STA save_attn): exact launches, step 1's loss bit-equal to
-    `default`'s (phases 6, 6b) from the same seed, the step-1 gradients within
-    POLICY_GRAD_REL_TOL, peaks and step seconds; before each, the kept outputs
-    against a fresh launch (_stash_check).  Returns ({path: launch counts},
-    {policy: stats})."""
+    """Phase 6c: the train CLI under each remat policy that keeps the flash
+    outputs: dense save_attn, save_attn_frac 0.7 and offload_attn at full
+    width and CUT_LAYERS layers, STA save_attn at full width and depth: exact
+    launches, step 1's loss bit-equal to `default`'s at the same depth from
+    the same seed (phase 6's save run, phase 6b), the step-1 gradients within
+    POLICY_GRAD_REL_TOL, peaks and step seconds; before each, the kept
+    outputs against a fresh launch (_stash_check).  Returns ({path: launch
+    counts}, {policy: stats})."""
     import gc
 
     import torch
 
     t_phase = time.perf_counter()
     counts, stats = {}, {}
-    runs = [("save_attn", "dense", dict(remat_policy="save_attn")),
-            ("save_attn_frac", "dense", dict(remat_policy="save_attn_frac", remat_save_frac=0.7)),
-            ("offload_attn", "dense", dict(remat_policy="offload_attn")),
-            ("sta_save_attn", "sta", dict(remat_policy="save_attn", attn_impl="sta"))]
-    for label, path, params in runs:
+    L = CUT_LAYERS
+    runs = [("save_attn", "dense_cut", L, dict(remat_policy="save_attn")),
+            ("save_attn_frac", "dense_cut", L,
+             dict(remat_policy="save_attn_frac", remat_save_frac=0.7)),
+            ("offload_attn", "dense_cut", L, dict(remat_policy="offload_attn")),
+            ("sta_save_attn", "sta", 30, dict(remat_policy="save_attn", attn_impl="sta"))]
+    for label, path, layers, params in runs:
         stash_diff = _stash_check(params["remat_policy"],
                                   **{k: v for k, v in params.items() if k != "remat_policy"})
-        want = (STA_SAVE_ATTN_LAUNCHES_PER_STEP if path == "sta"
-                else REMAT_POLICY_LAUNCHES[params["remat_policy"]])
-        grads = {}
-        trainer, c, st = _train(_train_argv(_policy_yaml(label, **params), _data_root(ex81)),
-                                want, f"train {label}",
-                                on_first_grads=_grads_vs_baseline(path, grads))
+        grads, base = {}, BASELINE[path]
+        trainer, c, st = _train(
+            _train_argv(_policy_yaml(label, num_layers=layers, **params), _data_root(ex81)),
+            _policy_launches(label, layers), f"train {label} at {layers} layers",
+            watched=_watched(layers), on_first_grads=_grads_vs_baseline(base, path, grads))
         st.update(grad_rel=grads["rel"], stash_max_diff=stash_diff,
-                  loss_equal=st["losses"][0] == BASELINE[path]["loss"])
+                  loss_equal=st["losses"][0] == base["loss"])
         log(f"train {label}: step-1 loss {st['losses'][0]!r} against default's "
-            f"{BASELINE[path]['loss']!r} (bit-equal {st['loss_equal']}); step-1 gradients "
+            f"{base['loss']!r} (bit-equal {st['loss_equal']}); step-1 gradients "
             f"relative L2 {grads['rel']:.3e} from default's (tol {POLICY_GRAD_REL_TOL}); peak "
-            f"{st['peak_gb']:.2f} GB against default's {BASELINE[path]['peak_gb']:.2f} GB; steps "
-            f"{[round(x, 2) for x in st['step_s']]} s against default's "
-            f"{[round(x, 2) for x in BASELINE[path]['step_s']]} s")
+            f"{st['peak_gb']:.2f} GB against default's {base['peak_gb']:.2f} GB; steps "
+            f"{[round(x, 2) for x in st['step_s']]} s ({layers} layers)")
         if not st["loss_equal"]:
             fail(f"{label}: step 1's loss differs from default's")
         if not grads["rel"] <= POLICY_GRAD_REL_TOL:
             fail(f"{label}: step 1's gradients differ from default's")
         if label == "offload_attn" and \
-                st["peak_gb"] > BASELINE[path]["peak_gb"] + OFFLOAD_PEAK_SLACK_GB:
+                st["peak_gb"] > base["peak_gb"] + OFFLOAD_PEAK_SLACK_GB:
             fail(f"offload_attn: device peak {st['peak_gb']:.2f} GB passes default's + "
                  f"{OFFLOAD_PEAK_SLACK_GB} GB")
         counts[f"train_cli_{label}"], stats[label] = c, st
@@ -1952,8 +2032,8 @@ def phase_train_remat(ex81):
 
 
 def phase_train_lora(ex81):
-    """Phase 6d: the train CLI with --lora-rank 16 at full width and depth,
-    `default` remat: exact launches (those of the full fine-tune), every base
+    """Phase 6d: the train CLI with --lora-rank 16 at full width and
+    CUT_LAYERS layers, `default` remat: exact launches (those of the full fine-tune), every base
     parameter bit-equal after 2 steps, every lora_b non-zero, the peak; then
     merge_lora's forward against the factored forward on a small input; then
     save and resume at RESUME_LAYERS layers under --lora-rank (<iter>/ema
@@ -1969,7 +2049,8 @@ def phase_train_lora(ex81):
     from scail_tpu_torch.training.lora import merge_lora
 
     t_phase = time.perf_counter()
-    base_yaml = os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")
+    L = CUT_LAYERS
+    base_yaml = _cut_yaml(L)
     lora = ["--lora-rank", str(LORA_RANK)]
     before = {}
 
@@ -1978,8 +2059,8 @@ def phase_train_lora(ex81):
                        for n, t in trainer.model.state_dict().items() if "lora_" not in n})
 
     trainer, counts, st = _train(_train_argv(base_yaml, _data_root(ex81)) + lora,
-                                 TRAIN_LAUNCHES_PER_STEP, "train LoRA",
-                                 watched=("layers.0.qkv.lora_b", "layers.29.mlp_out.lora_b"),
+                                 _train_launches(L), f"train LoRA at {L} layers",
+                                 watched=("layers.0.qkv.lora_b", f"layers.{L - 1}.mlp_out.lora_b"),
                                  on_start=snapshot)
     model = trainer.model
     state = model.state_dict()
@@ -1989,8 +2070,8 @@ def phase_train_lora(ex81):
     trained = sum(p.numel() for p in trainer.params.values())
     log(f"train LoRA: {len(before)} base tensors bit-equal after 2 steps: {not changed}; "
         f"{len(lora_b)} lora_b, all non-zero: {not zero_b}; {trained / 1e6:.2f} M trained "
-        f"parameters; peak {st['peak_gb']:.2f} GB (full fine-tune "
-        f"{BASELINE['dense']['peak_gb']:.2f} GB); steps {[round(x, 2) for x in st['step_s']]} s")
+        f"parameters; peak {st['peak_gb']:.2f} GB; steps {[round(x, 2) for x in st['step_s']]} s "
+        f"({L} layers)")
     if changed or zero_b or len(lora_b) != 7 * model.config.num_layers:
         fail(f"LoRA training: base tensors changed {changed[:4]}, zero lora_b {zero_b[:4]}, "
              f"{len(lora_b)} lora_b")
@@ -2011,7 +2092,7 @@ def phase_train_lora(ex81):
         merge_lora(model)
         merged = model(x, t, ctx, **inp).float()
     rel = ((merged - factored).norm() / factored.norm()).item()
-    log(f"merge_lora: merged vs factored forward (2, 3, 16, 16, 16), 30 layers: relative L2 "
+    log(f"merge_lora: merged vs factored forward (2, 3, 16, 16, 16), {L} layers: relative L2 "
         f"{rel:.3e} (tol {LORA_MERGE_REL_TOL})")
     if not rel <= LORA_MERGE_REL_TOL or any("lora_" in n for n in model.state_dict()):
         fail("merge_lora: the merged DiT disagrees with the factored one")
@@ -2245,10 +2326,10 @@ def phase_cli_14b_int8(ex81):
 
 # the long clip: 161 frames -> 41 latent frames in tiles of 21 overlapping by
 # 8 ([0, 20], [13, 33], [20, 40]); each of the 2 steps denoises the tile pairs
-# (0, 1) and (1, 2), 4 DiT forwards at CFG batch 2 and 48,832 tokens
+# (0, 1) and (1, 2), 4 DiT forwards at CFG batch 2 and 48,832 tokens, of the
+# DiT at CUT_LAYERS layers
 LONG_TILES = [(0, 20), (13, 33), (20, 40)]
 LONG_FORWARDS = 8
-LONG_LAUNCHES = {k: LONG_FORWARDS * v for k, v in DIT_LAUNCHES.items()}
 
 
 def _tokens(x_shape, patch=(2, 2)):
@@ -2260,9 +2341,9 @@ def _tokens(x_shape, patch=(2, 2)):
 
 def phase_cli_long():
     """The sampling CLI with the long-clip YAML (RFSamplerLong) on a 161-frame
-    512x896 synthetic example, 2 steps: 3 tiles, 8 DiT forwards at CFG batch 2
-    and 48,832 tokens, exact launches, the .mp4's 161 frames, per-phase
-    seconds and peak GB."""
+    512x896 synthetic example, the DiT at CUT_LAYERS layers, 2 steps: 3 tiles,
+    8 DiT forwards at CFG batch 2 and 48,832 tokens, exact launches, the
+    .mp4's 161 frames, per-phase seconds and peak GB."""
     import gc
 
     import numpy as np
@@ -2278,7 +2359,7 @@ def phase_cli_long():
     prompts = os.path.join(WORK, "prompts_long.txt")
     with open(prompts, "w") as f:
         f.write(f"a character dancing@@{ex161}\n")
-    argv = ["--base", os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml"),
+    argv = ["--base", _cut_yaml(CUT_LAYERS),
             os.path.join(ROOT, "configs", "sampling", "pose_cli_long.yaml"),
             "--input-type", "txt", "--input-file", prompts, "--sampling-steps", "2",
             "--device", "cuda", "--output-dir", os.path.join(WORK, "samples_long")]
@@ -2318,7 +2399,8 @@ def phase_cli_long():
     if tiles != LONG_TILES or seen["forwards"] != [(2, 48832)] * LONG_FORWARDS:
         fail(f"long clip: expected tiles {LONG_TILES} and {LONG_FORWARDS} forwards at CFG batch "
              f"2 and 48,832 tokens, got {tiles} and {seen['forwards']}")
-    _exact(counts, LONG_LAUNCHES, "the long-clip CLI, 2 steps")
+    _exact(counts, {k: LONG_FORWARDS * v for k, v in _eval_launches(CUT_LAYERS).items()},
+           "the long-clip CLI, 2 steps")
     if len(records) != 1 or not (rec["finite"] and out.endswith(".mp4")
                                  and decoded.shape == (161, 512, 896, 3) and np.ptp(decoded) > 0):
         fail("long-clip request: expected one .mp4 of 161 finite, non-constant 512x896 frames")
@@ -2654,7 +2736,7 @@ def _mesh_dit_launches(L, attn):
 
 # depth of the two-rank train CLI step (full width): both ranks' state and
 # activations share the one card
-PARALLEL_TRAIN_LAYERS = 8
+PARALLEL_TRAIN_LAYERS = 4
 # a rank of the two that share the card must stay under this (GB)
 PARALLEL_RANK_PEAK_GB = 38.0
 PARALLEL_TIMEOUT_S = 600
@@ -2833,11 +2915,13 @@ def _parallel_rank_main():
         dist.barrier()
         return out
 
-    # Ulysses at full depth
-    dit = _build_dit(attn_impl="ulysses")
-    out, r = _rank_dit(dit, inp, seq, "Ulysses seq 2, 30 layers",
-                       (_mesh_dit_launches(30, "ulysses"), {"all_to_all": 120}))
-    record("ulysses_30", out, r, reference(dit, dit.config))
+    # Ulysses at CUT_LAYERS layers (its all-to-alls are staged through the
+    # host at ~0.6 GB/s a rank, so its seconds grow with the depth)
+    L = CUT_LAYERS
+    dit = _build_dit(attn_impl="ulysses", num_layers=L)
+    out, r = _rank_dit(dit, inp, seq, f"Ulysses seq 2, {L} layers",
+                       (_mesh_dit_launches(L, "ulysses"), {"all_to_all": 4 * L}))
+    record(f"ulysses_{L}", out, r, reference(dit, dit.config))
     del dit, out
     gc.collect()
     torch.cuda.empty_cache()
@@ -2896,7 +2980,21 @@ def _parallel_rank_main():
         out, r = _rank_dit(net, inp, mesh, name, want)
         record(name, out, r, reference(dit, run_cfg))
         del out
-    del dit, tp, inp
+    del dit, tp
+    gc.collect()
+    torch.cuda.empty_cache()
+
+    # expert parallelism: the MoE DiT at 2 layers, 8 experts, 4 a rank (its
+    # linears tensor parallel as above, the MoE output all-reduced once)
+    full_moe = _moe_dit(2) if rank == 0 else None
+    ep = _moe_dit(2)
+    shard_module_(ep, dit_param_rules(), model)
+    if ep.layers[0].moe_in.weight.shape[0] != MOE["num_experts"] // 2:
+        fail(f"moe_ep_2: rank {rank} holds {ep.layers[0].moe_in.weight.shape[0]} experts")
+    out, r = _rank_dit(ep, inp, model, "moe_ep_2",
+                       (_mesh_dit_launches(2, "auto"), {"all_reduce": 16}))
+    record("moe_ep_2", out, r, reference(full_moe, full_moe.config if rank == 0 else None))
+    del full_moe, ep, out, inp
     gc.collect()
     torch.cuda.empty_cache()
 
@@ -3962,11 +4060,6 @@ def phase_image():
     return zoo_counts, pd_counts, stats
 
 
-# phase 13: both trainers.  One evaluation forward of the 1.3B DiT at 48,832
-# tokens runs without remat (evaluate is under no_grad): K1 and K3 a layer,
-# K9 2L + 1, K10 on k
-EVAL_FORWARD_LAUNCHES = {"flash_attention_rope": 30, "dual_cross_attention": 30,
-                         "adaln_layer_norm": 61, "rotary": 30}
 TRAINER_HOOK_LAYERS = 4
 # card against CPU for the autoencoder modules (f32 both sides, TF32 off)
 TRAINERS_REL_TOL = 1e-4
@@ -4035,8 +4128,7 @@ def _trainers_dit_fit(ex81, stats):
 
     Trainer.fit, Trainer.evaluate = fit, evaluate
     try:
-        argv = _train_argv(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml"),
-                           _data_root(ex81)) + ["--train-iters", "4"]
+        argv = _train_argv(_cut_yaml(CUT_LAYERS), _data_root(ex81)) + ["--train-iters", "4"]
         torch.cuda.reset_peak_memory_stats()
         reset_counts()
         t0 = time.perf_counter()
@@ -4052,9 +4144,9 @@ def _trainers_dit_fit(ex81, stats):
     timers_line = trainer.timers.log(["data loader", "train_step"], normalizer=steps)
     mem = report_memory("phase 13 (a), after Trainer.fit")
     losses = [m["loss"] for m in trainer.history]
-    want = {k: 2 * v + 2 * EVAL_FORWARD_LAUNCHES.get(k, 0)
-            for k, v in TRAIN_LAUNCHES_PER_STEP.items()}
-    log(f"trainers (a): Trainer.fit at 30 layers: stopped at step {trainer.step} of 4 "
+    want = {k: 2 * v + 2 * _eval_launches(CUT_LAYERS).get(k, 0)
+            for k, v in _train_launches(CUT_LAYERS).items()}
+    log(f"trainers (a): Trainer.fit at {CUT_LAYERS} layers: stopped at step {trainer.step} of 4 "
         f"(exit_interval 2), losses {losses}, evaluation losses {seen['evals']} "
         f"({[round(x, 2) for x in seen['eval_s']]} s each); timers per step: {timers_line} "
         f"(phase 6's steps {BASELINE['dense'].get('step_s')} s); report_memory {mem}; each "
@@ -4066,7 +4158,7 @@ def _trainers_dit_fit(ex81, stats):
     if len(seen["evals"]) != 2 or not all(math.isfinite(x) for x in seen["evals"]):
         fail(f"trainers (a): expected 2 finite evaluations, got {seen['evals']}")
     for i, got in enumerate(seen["eval_launches"]):
-        _exact(got, EVAL_FORWARD_LAUNCHES, f"trainers (a), evaluation {i + 1}")
+        _exact(got, _eval_launches(CUT_LAYERS), f"trainers (a), evaluation {i + 1}")
     _exact(counts, want, "trainers (a), 2 steps and 2 evaluations")
     stats["dit_fit"] = {"losses": losses, "eval_losses": seen["evals"], "eval_s": seen["eval_s"],
                         "timer_ms_per_step": timer_ms, "report_memory": mem,
@@ -4493,33 +4585,432 @@ def phase_trainers(ex81):
     return fit_counts, hook_counts, stats
 
 
+# --------------------------------------------------------------------------
+# Phase 14: the SVD VideoUNet, the MoE DiT, generation and the decoder zoo
+# --------------------------------------------------------------------------
+# Stability's generative-models configs/inference/svd.yaml, network_config
+SVD_UNET = dict(in_channels=8, out_channels=4, model_channels=320, channel_mult=(1, 2, 4, 4),
+                num_res_blocks=2, attention_resolutions=(4, 2, 1), num_head_channels=64,
+                transformer_depth=1, context_dim=1024, adm_in_channels=768,
+                num_classes="sequential", use_linear_in_transformer=True,
+                use_spatial_context=True, extra_ff_mix_layer=True,
+                merge_strategy="learned_with_images", video_kernel_size=(3, 1, 1),
+                use_checkpoint=False, spatial_transformer_attn_type="softmax-xformers")
+SVD_FRAMES = 14
+SVD_LATENT = (72, 128)  # 576 x 1024
+ZOO_REL_TOL = 1e-4
+# the MoE DiT at scail_1p3b.yaml's widths: launches per forward (its MLPs run
+# cuBLAS, the attention and norms the same kernels as the dense DiT)
+MOE = dict(num_experts=8, moe_top_k=2)
+MOE_PLAIN_LAYERS = 4
+LLAMA_PROMPT = (2, 128)
+LLAMA_NEW = 32
+GLM130B_CPU_WIDTH = dict(dim=4096, num_heads=32, inner_hidden_size=10944)
+# CogView (Ding et al. 2021, arXiv:2105.13290, sec. 3: 48 layers, hidden
+# 2560, 40 heads): the width the cuda2d super-resolution model finetunes
+COGVIEW = dict(dim=2560, num_heads=40)
+
+
+def _param_gb(module):
+    return sum(p.numel() * p.element_size() for p in module.parameters()) / 1e9
+
+
+def _zoo_svd(stats):
+    """(a) the SVD VideoUNet at svd.yaml's widths, f32 (TF32 off): one
+    forward of 14 frames at 576 x 1024 at CFG batch 2 (28 frames); card
+    against CPU on a 16 x 16 latent with 4 frames."""
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+    from scail_tpu_torch.models.video_unet import VideoUNet
+
+    gen = torch.Generator(device="cuda").manual_seed(21)
+    t0 = time.perf_counter()
+    net = VideoUNet(**SVD_UNET, device="meta").init_random_(gen, zero_modules=False,
+                                                            device="cuda")
+    build_s = time.perf_counter() - t0
+    n = 2 * SVD_FRAMES
+
+    def inputs(frames, hw, dev, g):
+        b = frames // (SVD_FRAMES if frames == n else 4)
+        r = lambda *s: torch.randn(*s, generator=g, device=dev)  # noqa: E731
+        return dict(x=r(frames, 8, *hw), timesteps=torch.rand(frames, generator=g, device=dev),
+                    context=r(frames, 1, 1024), y=r(frames, 768),
+                    image_only_indicator=torch.zeros(b, frames // b, device=dev),
+                    num_video_frames=frames // b)
+
+    inp = inputs(n, SVD_LATENT, "cuda", gen)
+    x = inp.pop("x")
+    with full_f32(), torch.inference_mode():
+        out, s, peak = _timed_on_card(lambda: net(x, **inp))
+    if tuple(out.shape) != (n, 4, *SVD_LATENT) or not torch.isfinite(out).all():
+        fail(f"zoo (a): VideoUNet output bad {tuple(out.shape)}")
+    del out, x, inp
+    cpu_gen = torch.Generator().manual_seed(22)
+    small = inputs(4, (16, 16), "cpu", cpu_gen)
+    cpu = VideoUNet(**SVD_UNET, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in net.state_dict().items()}, assign=True)
+    on_card = {k: v.cuda() if torch.is_tensor(v) else v for k, v in small.items()}
+    with full_f32(), torch.inference_mode():
+        got = net(on_card.pop("x"), **on_card).cpu()
+        want = cpu(small.pop("x"), **small)
+    rel = _rel_l2(got, want)
+    stats["svd"] = {"params_b": sum(p.numel() for p in net.parameters()) / 1e9,
+                    "param_gb": _param_gb(net), "build_s": build_s, "forward_ms": s * 1e3,
+                    "peak_gb": peak, "card_vs_cpu": rel}
+    log(f"zoo (a): SVD VideoUNet ({stats['svd']['params_b']:.3f} B parameters, "
+        f"{stats['svd']['param_gb']:.2f} GB f32): forward of {n} frames at "
+        f"{SVD_LATENT[0] * 8}x{SVD_LATENT[1] * 8} {s * 1e3:.1f} ms, peak {peak:.2f} GB; card vs "
+        f"CPU (4 frames, 16x16 latent) relative L2 {rel:.3e} (tol {ZOO_REL_TOL:.0e})")
+    if not rel <= ZOO_REL_TOL:
+        fail("zoo (a): the VideoUNet on the card disagrees with the CPU")
+    del net, cpu
+    _free_card()
+
+
+def _moe_dit(num_layers=30):
+    """The 1.3B DiT with 8 experts, top 2, bf16, drawn one parameter at a
+    time on the card."""
+    import torch
+    import yaml
+
+    from scail_tpu_torch.utils.registry import instantiate_from_config
+
+    with open(os.path.join(ROOT, "configs", "video_model", "scail_1p3b.yaml")) as f:
+        nc = yaml.safe_load(f)["model"]["network_config"]
+    nc["params"].update(dtype="bf16", use_i2v_clip=True, num_layers=num_layers, **MOE)
+    dit = instantiate_from_config(nc).build("meta")
+    dit.init_weights_(torch.Generator(device="cuda").manual_seed(1), device="cuda",
+                      dtype=torch.bfloat16)
+    return dit.eval()
+
+
+def _zoo_moe_dit(stats):
+    """(b) the MoE DiT: one forward at CFG batch 2, 48,832 tokens, exact
+    launches; the kernel path against the plain path at MOE_PLAIN_LAYERS on
+    phase 4's small input."""
+    import dataclasses
+
+    import torch
+
+    t0 = time.perf_counter()
+    dit = _moe_dit()
+    build_s = time.perf_counter() - t0
+    experts = sum(p.numel() for n, p in dit.named_parameters() if ".moe_" in n)
+    param_gb = _param_gb(dit)
+    inp = _dit_inputs(torch.Generator(device="cuda").manual_seed(2), 21, 64, 112)
+    x, t, ctx = inp.pop("x"), inp.pop("timesteps"), inp.pop("context")
+    counts = {}
+
+    def fwd():
+        reset_counts()
+        out = dit(x, t, ctx, **inp)
+        counts.update(launch_counts())
+        return out
+
+    with torch.inference_mode():
+        out, s, peak = _timed_on_card(fwd)
+    _exact(counts, DIT_LAUNCHES, "zoo (b): one MoE DiT forward")
+    if tuple(out.shape) != (2, 21, 16, 64, 112) or not torch.isfinite(out).all():
+        fail(f"zoo (b): MoE DiT output bad {tuple(out.shape)}")
+    del dit, out, x, ctx, inp
+    _free_card()
+    small = _moe_dit(MOE_PLAIN_LAYERS)
+    cfg = small.config
+    sinp = _dit_inputs(torch.Generator(device="cuda").manual_seed(3), 3, 16, 16)
+    xs, ts, cs = sinp.pop("x"), sinp.pop("timesteps"), sinp.pop("context")
+    with torch.inference_mode():
+        got = small(xs, ts, cs, **sinp).float()
+        small.config = dataclasses.replace(cfg, attn_impl="xla")
+        want = small(xs, ts, cs, **sinp).float()
+        small.config = cfg
+    rel = _rel_l2(got, want)
+    stats["moe_dit"] = {"expert_params_b": experts / 1e9, "param_gb": param_gb, "build_s": build_s,
+                        "forward_ms": s * 1e3, "peak_gb": peak, "launches": counts,
+                        "kernel_vs_plain": rel}
+    log(f"zoo (b): MoE DiT (1.3B widths, {MOE['num_experts']} experts top "
+        f"{MOE['moe_top_k']}, {experts / 1e9:.3f} B expert parameters): forward at CFG batch 2, "
+        f"48,832 tokens {s * 1e3:.1f} ms, peak {peak:.2f} GB, launches "
+        f"{ {k: v for k, v in counts.items() if v} }; kernel path vs plain path at "
+        f"{MOE_PLAIN_LAYERS} layers, (2, 3, 16, 16, 16): relative L2 {rel:.3e} (tol "
+        f"{DIT_REL_TOL})")
+    if not rel < DIT_REL_TOL:
+        fail("zoo (b): the MoE DiT's kernel path disagrees with its plain path")
+    del small, got, want
+    _free_card()
+    return counts
+
+
+def _build_lm(cls, cfg, dtype, seed=31):
+    import torch
+
+    return cls(cfg, device="meta").init_weights_(torch.Generator(device="cuda").manual_seed(seed),
+                                                 device="cuda", dtype=dtype).eval()
+
+
+def _generate(model, seq, cached, strategy, seed=33):
+    """filling_sequence over `model`: through its KV cache (the prompt
+    prefilled at the first call, then one token a call) or by full
+    recompute; (tokens, ms a new token, peak GB)."""
+    import torch
+
+    from scail_tpu_torch.generation import filling_sequence
+
+    state = {"cache": None, "fed": 0}
+
+    def cached_fn(tokens, pos):
+        if state["cache"] is None:
+            state["cache"] = model.new_cache(tokens.shape[0])
+        logits, _ = model(tokens[:, state["fed"]:pos + 1], state["cache"])
+        state["fed"] = pos + 1
+        return logits[:, -1]
+
+    def full_fn(tokens, pos):
+        return model(tokens[:, :pos + 1])[0][:, -1]
+
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with torch.inference_mode():
+        out = filling_sequence(cached_fn if cached else full_fn, seq, strategy,
+                               torch.Generator(device="cuda").manual_seed(seed))
+    torch.cuda.synchronize()
+    n_new = int((seq < 0).sum(1).max())
+    return out, (time.perf_counter() - t0) * 1e3 / n_new, torch.cuda.max_memory_allocated() / 1e9
+
+
+def _zoo_llama(stats):
+    """(d) generation at Llama-2-7B's widths (LlamaConfig defaults):
+    filling_sequence fills LLAMA_NEW tokens after a 2 x 128 prompt.  bf16:
+    greedy through the KV cache, greedy by full recompute, top-k 40 / top-p
+    0.9 through the cache, timed.  The check that the cached greedy tokens
+    equal full recompute's runs at the same widths and depth in f32 (TF32
+    off): in bf16 the two paths round differently (other GEMM shapes), and a
+    near-tie between the top two logits of a random-weight model then picks
+    another token, so the bf16 run only reports where they part."""
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+    from scail_tpu_torch.generation import BaseStrategy
+    from scail_tpu_torch.models.zoo.llama import Llama, LlamaConfig
+
+    cfg = LlamaConfig()
+    b, s0 = LLAMA_PROMPT
+    gen = torch.Generator(device="cuda").manual_seed(32)
+    seq = torch.full((b, s0 + LLAMA_NEW), -1, dtype=torch.long, device="cuda")
+    seq[:, :s0] = torch.randint(0, cfg.vocab_size, (b, s0), generator=gen, device="cuda")
+    greedy, sampled = BaseStrategy(top_k=1), BaseStrategy(top_k=40, top_p=0.9)
+    rec = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        name = str(dtype).split(".")[-1]
+        t0 = time.perf_counter()
+        model = _build_lm(Llama, cfg, dtype)
+        build_s = time.perf_counter() - t0
+        runs = {"greedy_cached": (True, greedy), "greedy_full": (False, greedy)}
+        if dtype == torch.bfloat16:
+            runs["top_k40_top_p0.9_cached"] = (True, sampled)
+        r, toks = {"param_gb": _param_gb(model), "build_s": build_s}, {}
+        with full_f32():
+            for run, (cached, strategy) in runs.items():
+                toks[run], ms, peak = _generate(model, seq, cached, strategy)
+                r[run] = {"ms_per_token": ms, "peak_gb": peak}
+                t = toks[run]
+                if not ((t >= 0) & (t < cfg.vocab_size)).all() or \
+                        not torch.equal(t[:, :s0], seq[:, :s0]):
+                    fail(f"zoo (d): {run}: a token left unfilled or the prompt changed")
+            a, f = toks["greedy_cached"], toks["greedy_full"]
+            r["greedy_cached_equals_full"] = bool(torch.equal(a, f))
+            diff = (a != f).any(0).nonzero()
+            r["first_difference"] = int(diff[0]) if len(diff) else None
+            if len(diff):  # the full path's top-2 logit gap where the two part
+                pos = r["first_difference"]
+                row = int((a[:, pos] != f[:, pos]).nonzero()[0])
+                with torch.inference_mode():
+                    top2 = model(a[row:row + 1, :pos])[0][0, -1].float().topk(2).values
+                r["top2_gap_there"] = float(top2[0] - top2[1])
+        rec[name] = r
+        log(f"zoo (d): Llama-2-7B widths, {name} ({r['param_gb']:.2f} GB, built in "
+            f"{build_s:.1f} s): " + "; ".join(
+                f"{k} {v['ms_per_token']:.1f} ms a token, peak {v['peak_gb']:.2f} GB"
+                for k, v in r.items() if isinstance(v, dict))
+            + f"; greedy cached == full recompute: {r['greedy_cached_equals_full']}"
+            + ("" if r["first_difference"] is None else
+               f" (first parts at position {r['first_difference']}, where full recompute's "
+               f"top two logits are {r['top2_gap_there']:.4f} apart)"))
+        del model
+        _free_card()
+    stats["llama"] = rec
+    if not rec["float32"]["greedy_cached_equals_full"]:
+        fail("zoo (d): in f32 the cached greedy tokens differ from full recompute's")
+
+
+def _zoo_cases():
+    """(label, module, config class, full-depth kwargs, 2-layer kwargs for
+    the card-vs-CPU check, the forward's inputs(b, s, device, gen) -> args)."""
+    import torch
+
+    def ids(vocab):
+        def make(b, s, dev, g):
+            return (torch.randint(0, vocab, (b, s), generator=g, device=dev),)
+        return make
+
+    def glm2d(vocab):
+        def make(b, s, dev, g):
+            pos = torch.arange(s, device=dev).expand(b, s)
+            block = torch.zeros_like(pos)
+            return (torch.randint(0, vocab, (b, s), generator=g, device=dev),
+                    torch.stack([pos, block], 1), torch.tril(torch.ones(b, s, s, device=dev)))
+        return make
+
+    def cuda2d(vocab, layout):
+        def make(b, s, dev, g):
+            s0 = layout[1]
+            pos = torch.cat([torch.arange(s0), torch.arange(layout[2] - s0)]).to(dev)
+            return (torch.randint(0, vocab, (b, layout[2]), generator=g, device=dev),
+                    pos.expand(b, -1), torch.tril(torch.ones(b, s0, s0, device=dev)))
+        return make
+
+    return [
+        ("Mixtral-8x7B", "mixtral", "MixtralConfig", dict(num_layers=2), dict(num_layers=2),
+         ids(32000)),
+        ("GLM-4-9B", "glm", "GlmConfig", {}, dict(num_layers=2), ids(151552)),
+        ("ChatGLM-6B", "chatglm", "ChatGLMConfig", {}, dict(num_layers=2), glm2d(130528)),
+        ("ChatGLM2-6B", "chatglm23", "ChatGLM2Config", {}, dict(num_layers=2), ids(65024)),
+        ("GLM-130B", "glm130b", "GLM130BConfig", dict(num_layers=2),
+         dict(num_layers=2, **GLM130B_CPU_WIDTH), glm2d(150528)),
+        ("GPT-2", "gpt", "GPTConfig", {}, dict(num_layers=2), ids(50257)),
+        ("GPT-Neo-1.3B", "gptneo", "GPTNeoConfig", {}, dict(num_layers=2), ids(50257)),
+        ("GLM-large", "glmblock", "GLMBlockConfig", {}, dict(num_layers=2), glm2d(30592)),
+        ("cuda2d", "cuda2d", "Cuda2dConfig", dict(num_layers=2, **COGVIEW),
+         dict(num_layers=2, **COGVIEW), cuda2d(50048, (64, 1088, 5184))),
+    ]
+
+
+ZOO_MODELS = {"mixtral": "Mixtral", "glm": "Glm", "chatglm": "ChatGLM", "chatglm23": "ChatGLM2",
+              "glm130b": "GLM130B", "gpt": "GPT", "gptneo": "GPTNeo", "glmblock": "GLMBlock",
+              "cuda2d": "Cuda2d"}
+ZOO_PROMPT = (1, 128)
+ZOO_CPU_PROMPT = (1, 32)
+
+
+def _logits(out):
+    return out[0] if isinstance(out, tuple) else out
+
+
+def _zoo_lms(stats):
+    """(e) one prompt forward of each model in bf16 at its published width
+    and the listed depth; then, f32, at 2 layers (GLM-130B at width 4,096),
+    the card against the CPU from one state dict."""
+    import importlib
+
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+
+    stats["lms"] = {}
+    for label, mod, cfg_name, full_kw, cpu_kw, make in _zoo_cases():
+        m = importlib.import_module(f"scail_tpu_torch.models.zoo.{mod}")
+        cls, cfg_cls = getattr(m, ZOO_MODELS[mod]), getattr(m, cfg_name)
+        cfg = cfg_cls(**full_kw)
+        t0 = time.perf_counter()
+        model = _build_lm(cls, cfg, torch.bfloat16)
+        build_s = time.perf_counter() - t0
+        args = make(*ZOO_PROMPT, "cuda", torch.Generator(device="cuda").manual_seed(41))
+        with torch.inference_mode():
+            out, s, peak = _timed_on_card(lambda: _logits(model(*args)))
+        if not torch.isfinite(out).all() or out.shape[-1] != cfg.vocab_size:
+            fail(f"zoo (e): {label}: logits not finite or not {cfg.vocab_size} wide")
+        rec = {"layers": cfg.num_layers, "params_b": sum(p.numel() for p in model.parameters())
+               / 1e9, "param_gb": _param_gb(model), "build_s": build_s, "tokens": out.shape[1],
+               "forward_ms": s * 1e3, "peak_gb": peak}
+        del model, out, args
+        _free_card()
+        # card against CPU, f32, 2 layers
+        small_cfg = cfg_cls(**cpu_kw)
+        card = _build_lm(cls, small_cfg, torch.float32, seed=42)
+        cpu = cls(small_cfg, device="meta")
+        cpu.load_state_dict({k: v.cpu() for k, v in card.state_dict().items()}, assign=True)
+        cpu_args = make(*ZOO_CPU_PROMPT, "cpu", torch.Generator().manual_seed(43))
+        with full_f32(), torch.inference_mode():
+            got = _logits(card(*(a.cuda() for a in cpu_args))).cpu()
+            want = _logits(cpu(*cpu_args))
+        rec["card_vs_cpu"] = _rel_l2(got, want)
+        rec["card_vs_cpu_width"] = small_cfg.dim
+        stats["lms"][label] = rec
+        log(f"zoo (e): {label}: {rec['params_b']:.3f} B parameters at {rec['layers']} layers "
+            f"({rec['param_gb']:.2f} GB bf16): forward of {rec['tokens']} tokens "
+            f"{rec['forward_ms']:.1f} ms, peak {peak:.2f} GB; card vs CPU (f32, 2 layers, width "
+            f"{small_cfg.dim}) relative L2 {rec['card_vs_cpu']:.3e} (tol {ZOO_REL_TOL:.0e})")
+        if not rec["card_vs_cpu"] <= ZOO_REL_TOL:
+            fail(f"zoo (e): {label} on the card disagrees with the CPU")
+        del card, cpu, got, want
+        _free_card()
+
+
+def phase_zoo():
+    """Phase 14: (a) the SVD VideoUNet, (b) the MoE DiT, (d) Llama-2-7B
+    generation, (e) the decoder zoo; (c), the MoE DiT under expert
+    parallelism, runs in phase 10.  Returns the MoE DiT's launches and the
+    phase's record."""
+    t_phase = time.perf_counter()
+    stats = {"seconds": {}}
+    steps = (("svd", _zoo_svd), ("moe_dit", _zoo_moe_dit), ("llama", _zoo_llama),
+             ("lms", _zoo_lms))
+    moe_counts = None
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        r = fn(stats)
+        if name == "moe_dit":
+            moe_counts = r
+        stats["seconds"][name] = time.perf_counter() - t0
+        log(f"phase 14 ({name}): {stats['seconds'][name]:.1f} s")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 14 (zoo): {stats['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stats["seconds"].items()) + ")")
+    print(json.dumps({"zoo": stats}, default=str), flush=True)
+    return moe_counts, stats
+
+
+# seconds of each phase of this run, in order
+PHASE_S = {}
+
+
+def _phase(name, fn, *args):
+    t0 = time.perf_counter()
+    out = fn(*args)
+    PHASE_S[name] = time.perf_counter() - t0
+    return out
+
+
 def main():
     if not os.path.isdir(os.path.join(ROOT, "scail_tpu_torch")):
         fail("scail_tpu_torch/ not found beside chip_smoke.py: run from a checkout")
     sys.path.insert(0, ROOT)
     os.chdir(ROOT)
     t_start = time.perf_counter()
-    card = phase_device()
-    build_s = phase_build()
-    kernels = phase_kernels()
-    dit_ms = phase_dit()
-    sta_dit_ms = phase_dit_sta()
-    sample_counts, records = phase_cli()
+    card = _phase("device", phase_device)
+    build_s = _phase("build", phase_build)
+    kernels = _phase("kernels", phase_kernels)
+    dit_ms = _phase("dit", phase_dit)
+    sta_dit_ms = _phase("dit_sta", phase_dit_sta)
+    sample_counts, records = _phase("cli", phase_cli)
     ex81 = os.path.join(WORK, "synthetic_081")
-    sta_sample_counts, sta_record = phase_cli_sta(ex81)
-    long_counts, long_rec = phase_cli_long()
-    train_counts, train = phase_train(ex81)
-    sta_train_counts, sta_train = phase_train_sta(ex81)
-    remat_counts, remat = phase_train_remat(ex81)
-    lora_counts, lora = phase_train_lora(ex81)
-    w8_counts, w8 = phase_dit14b_w8()
-    w4_counts, w4 = phase_e2e_14b_w4()
-    int8_counts, int8 = phase_cli_14b_int8(ex81)
-    load_counts, load = phase_load(ex81)
-    parallel_counts, par = phase_parallel(ex81)
-    eval_counts, ev = phase_evals(records[1]["outputs"][0], sta_record["outputs"][0])
-    zoo_counts, pd_counts, image = phase_image()
-    fit_counts, hook_counts, trainers = phase_trainers(ex81)
+    sta_sample_counts, sta_record = _phase("cli_sta", phase_cli_sta, ex81)
+    long_counts, long_rec = _phase("cli_long", phase_cli_long)
+    train_counts, train = _phase("train", phase_train, ex81)
+    sta_train_counts, sta_train = _phase("train_sta", phase_train_sta, ex81)
+    remat_counts, remat = _phase("train_remat", phase_train_remat, ex81)
+    lora_counts, lora = _phase("train_lora", phase_train_lora, ex81)
+    w8_counts, w8 = _phase("dit14b_w8", phase_dit14b_w8)
+    w4_counts, w4 = _phase("e2e_14b_w4", phase_e2e_14b_w4)
+    int8_counts, int8 = _phase("cli_14b_int8", phase_cli_14b_int8, ex81)
+    load_counts, load = _phase("load", phase_load, ex81)
+    parallel_counts, par = _phase("parallel", phase_parallel, ex81)
+    eval_counts, ev = _phase("evals", phase_evals, records[1]["outputs"][0],
+                             sta_record["outputs"][0])
+    zoo_counts, pd_counts, image = _phase("image", phase_image)
+    fit_counts, hook_counts, trainers = _phase("trainers", phase_trainers, ex81)
+    moe_counts, zoo = _phase("zoo", phase_zoo)
     _no_jax_loaded("the whole run")
 
     import torch
@@ -4548,8 +5039,13 @@ def main():
         f"{ev['phase_s']:.1f} s (the STA gate {ev['validate_weights']['seconds']:.1f} s); image "
         f"phase {image['phase_s']:.1f} s (SDXL UNet forward at CFG batch 2 "
         f"{image['unet_ms_cfg2']:.1f} ms, decode {image['vae_decode_ms']:.1f} ms); trainers "
-        f"phase {trainers['phase_s']:.1f} s; whole run "
-        f"{time.perf_counter() - t_start:.0f} s; card {card}")
+        f"phase {trainers['phase_s']:.1f} s; zoo phase {zoo['phase_s']:.1f} s (SVD UNet forward "
+        f"{zoo['svd']['forward_ms']:.1f} ms, MoE DiT forward {zoo['moe_dit']['forward_ms']:.1f} ms, "
+        f"Llama-2-7B {zoo['llama']['bfloat16']['greedy_cached']['ms_per_token']:.1f} ms a "
+        f"token); phases (s) "
+        + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
+        + f"; whole run {time.perf_counter() - t_start:.0f} s; card {card}")
+    print(json.dumps({"phase_seconds": PHASE_S}), flush=True)
 
     paths = {"sample_cli": sample_counts, "train_cli": train_counts,
              "sample_cli_sta": sta_sample_counts, "train_cli_sta": sta_train_counts,
@@ -4558,7 +5054,7 @@ def main():
              **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts,
              "validate_weights": eval_counts, "dit_zoo_dpmpp2m": zoo_counts,
              "pd_step": pd_counts, "trainer_fit_evals": fit_counts,
-             "trainer_hooks_4layers": hook_counts}
+             "trainer_hooks_4layers": hook_counts, "dit_moe": moe_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

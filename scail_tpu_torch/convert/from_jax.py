@@ -225,16 +225,41 @@ def unet_state_dict_from_jax(params, num_classes=None) -> Dict[str, torch.Tensor
                       "output": "output_blocks"}[head]
             names = []
             for i, c in enumerate(rest):
-                if c == "proj_in" and i and rest[i - 1] == "ff":
-                    names[-1:] = ["ff.net.0.proj"]
-                elif c == "proj_out" and i and rest[i - 1] == "ff":
-                    names[-1:] = ["ff.net.2"]
+                if c == "proj_in" and i and rest[i - 1] in ("ff", "ff_in"):
+                    names[-1:] = [f"{rest[i - 1]}.net.0.proj"]
+                elif c == "proj_out" and i and rest[i - 1] in ("ff", "ff_in"):
+                    names[-1:] = [f"{rest[i - 1]}.net.2"]
                 else:
                     names.append(_UNET_PARTS.get(c, c))
             stem = ".".join([blocks] + names)
         leaf, val = _torch_layout(parts[-1], arr)
         sd[f"{stem}.{leaf}"] = _tensor(val)
     return sd
+
+
+def _video_unet_layer(lp):
+    """A VideoUNet layer's JAX tree in the 2-D UNet's shape: a video res
+    block's `spatial` ResBlock at the block's own level (sgm's VideoResBlock
+    subclasses ResBlock), `time_pos_embed` [0, 1] at sgm's Sequential indices
+    0 and 2."""
+    if not isinstance(lp, dict):
+        return lp
+    if "spatial" in lp:
+        lp = {**lp["spatial"], **{k: v for k, v in lp.items() if k != "spatial"}}
+    if "time_pos_embed" in lp:
+        lp = {**lp, "time_pos_embed": {"0": lp["time_pos_embed"][0],
+                                       "2": lp["time_pos_embed"][1]}}
+    return lp
+
+
+def video_unet_state_dict_from_jax(params, num_classes=None) -> Dict[str, torch.Tensor]:
+    """`VideoUNet.init` / `video_unet_params_from_torch` pytree -> the port's
+    `VideoUNet.state_dict()` (sgm names)."""
+    tree = dict(params)
+    for part in ("input", "output"):
+        tree[part] = [[_video_unet_layer(lp) for lp in blk] for blk in params[part]]
+    tree["middle"] = [_video_unet_layer(lp) for lp in params["middle"]]
+    return unet_state_dict_from_jax(tree, num_classes)
 
 
 def autoencoder_kl_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
@@ -439,3 +464,25 @@ def video_tokenizer_state_dict_from_jax(params, plan) -> Dict[str, torch.Tensor]
     sd[f"encoder_layers.{n}.1.bias"] = _tensor(np.asarray(params["final_norm"]["bias"]))
     sd.update({f"quantizers.{k}": v for k, v in lfq_state_dict_from_jax(params["lfq"]).items()})
     return sd
+
+
+def lm_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A zoo decoder LM's pytree (stacked `layers/...` leaves; `init_*_params`
+    or a `*_params_from_hf` / `*_params_from_sat` converter) -> the port
+    model's `state_dict()` (models/zoo/): layer i's leaves at `layers.i.*`,
+    kernels transposed to (out, in), an expert stack (E, in, out) to (E, out,
+    in); tables and norms keep their names."""
+    return _stacked(params, _linear_leaf)
+
+
+# one name per zoo module, as the parity tests call them
+llama_state_dict_from_jax = lm_state_dict_from_jax
+mixtral_state_dict_from_jax = lm_state_dict_from_jax
+gpt_state_dict_from_jax = lm_state_dict_from_jax
+gptneo_state_dict_from_jax = lm_state_dict_from_jax
+glm_state_dict_from_jax = lm_state_dict_from_jax
+chatglm_state_dict_from_jax = lm_state_dict_from_jax
+chatglm2_state_dict_from_jax = lm_state_dict_from_jax
+glm130b_state_dict_from_jax = lm_state_dict_from_jax
+glmblock_state_dict_from_jax = lm_state_dict_from_jax
+cuda2d_state_dict_from_jax = lm_state_dict_from_jax

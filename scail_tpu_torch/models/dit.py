@@ -17,7 +17,10 @@ order of ops/sta.py (one gather before the layers, one after) with q and k
 roped in torch, as the JAX package does; attn_impl='pallas_int8' ropes q and
 k in torch and runs the int8-QK flash kernel (ops/attention.py
 attention_int8).  Linears replaced by ops/quant.py's QuantizedLinear (W8A16 /
-W4A16) run the quantized matmul kernel.  MoE raises NotImplementedError.
+W4A16) run the quantized matmul kernel.  num_experts > 1 replaces the MLP by
+the top-k mixture of experts of ops/moe.py (moe_gate, moe_in, moe_out with
+the JAX (E, ...) stacking); under a 'model' mesh the experts shard over the
+model ranks (expert parallelism) and the output is all-reduced once.
 attn_impl 'ulysses' and 'ring' without a mesh compute the dense path with q
 and k roped by the rotary kernel, as the JAX package does.
 
@@ -67,6 +70,7 @@ from scail_tpu_torch.ops.attention import IMPLS as ATTN_IMPLS
 from scail_tpu_torch.ops.attention import (FlashStash, attention, attention_int8,
                                            dual_cross_attention)
 from scail_tpu_torch.ops.fused_norms import adaln_layer_norm, apply_rotary_fused
+from scail_tpu_torch.ops.moe import moe_mlp
 from scail_tpu_torch.ops.norms import layer_norm, rms_norm
 from scail_tpu_torch.ops.rotary import build_scail_rope
 from scail_tpu_torch.ops.sta import sta_attention, sta_plan
@@ -217,9 +221,6 @@ class DiTConfig:
         if self.remat and self.remat_policy not in REMAT_POLICIES:
             raise ValueError(f"unknown remat_policy {self.remat_policy!r}, expected one of "
                              f"{REMAT_POLICIES}")
-        if self.num_experts > 1:
-            raise NotImplementedError("MoE MLP (num_experts > 1) is not ported: "
-                                      "ROADMAP Queue 1, item 15 (ops/moe.py)")
         if self.patch_size[0] != 1:
             raise NotImplementedError("temporal patching > 1 is not used by SCAIL configs")
 
@@ -234,8 +235,18 @@ class DiTBlock(nn.Module):
         self.cross_q = lin(h, h)
         self.cross_kv = lin(h, 2 * h)
         self.cross_out = lin(h, h)
-        self.mlp_in = lin(h, inner)
-        self.mlp_out = lin(inner, h)
+        if cfg.num_experts > 1:
+            # stacked experts and their router (JAX dit.py:248-258): expert e's
+            # linears are moe_in.weight[e] (inner, h) and moe_out.weight[e]
+            E = cfg.num_experts
+            self.moe_gate = linear(h, E, bias=False, device=device)
+            self.moe_in = container(weight=parameter(E, inner, h, device=device),
+                                    bias=parameter(E, inner, fill=0.0, device=device))
+            self.moe_out = container(weight=parameter(E, h, inner, device=device),
+                                     bias=parameter(E, h, fill=0.0, device=device))
+        else:
+            self.mlp_in = lin(h, inner)
+            self.mlp_out = lin(inner, h)
         if cfg.share_adaln:
             self.adaln = parameter(6, h, device=device)
         else:
@@ -601,10 +612,31 @@ class DiT(nn.Module):
 
         # MLP
         mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, round_ln=True, impl=impl)
-        hidden = hidden + g_mlp * row(blk.mlp_out, gelu_tanh(col(blk.mlp_in, mi)))
+        if cfg.num_experts > 1:
+            mo = _moe(blk, mi, cfg.moe_top_k, mesh if tp else None)
+        else:
+            mo = row(blk.mlp_out, gelu_tanh(col(blk.mlp_in, mi)))
+        hidden = hidden + g_mlp * mo
         if mesh is not None and self._shards_carries(mesh):
             hidden = comm.split(hidden, mesh, MODEL_AXIS, -1)
         return hidden
+
+
+def _moe(blk, x, top_k: int, mesh=None):
+    """The MoE MLP (ops/moe.py).  Under a 'model' mesh each rank holds
+    E / model experts (expert parallelism): the router scores all of them
+    on the replicated input, the rank runs its own, and the ranks' partial
+    outputs are all-reduced once.  The input and the replicated gate pass
+    copy_to, so their gradients are summed over the ranks."""
+    gate = blk.moe_gate.weight
+    offset = 0
+    if mesh is not None:
+        x = comm.copy_to(x, mesh, MODEL_AXIS)
+        gate = comm.copy_to(gate, mesh, MODEL_AXIS)
+        offset = mesh.rank(MODEL_AXIS) * blk.moe_in.weight.shape[0]
+    y = moe_mlp(x, gate, blk.moe_in.weight, blk.moe_out.weight, b_in=blk.moe_in.bias,
+                b_out=blk.moe_out.bias, top_k=top_k, act=gelu_tanh, expert_offset=offset)
+    return y if mesh is None else comm.reduce_from(y, mesh, MODEL_AXIS)
 
 
 def _rms_norm_sharded(x, scale, mesh, width: int, eps: float):

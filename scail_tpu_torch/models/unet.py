@@ -48,9 +48,9 @@ def _layer_norm(norm: nn.LayerNorm, x):
 
 
 def conv(layer: nn.Conv2d, x):
-    """The layer's convolution (1-D or 2-D) with its weights in x's dtype."""
+    """The layer's convolution (1-D, 2-D or 3-D) with its weights in x's dtype."""
     bias = None if layer.bias is None else layer.bias.to(x.dtype)
-    fn = F.conv1d if isinstance(layer, nn.Conv1d) else F.conv2d
+    fn = {nn.Conv1d: F.conv1d, nn.Conv2d: F.conv2d, nn.Conv3d: F.conv3d}[type(layer)]
     return fn(x, layer.weight.to(x.dtype), bias, stride=layer.stride, padding=layer.padding)
 
 
@@ -65,8 +65,11 @@ def _zero(module: nn.Module) -> nn.Module:
     return module
 
 
-def _conv2d(c_in, c_out, k, device, stride=1, zero=False):
-    layer = nn.Conv2d(c_in, c_out, k, stride=stride, padding=k // 2, device=device)
+def _conv2d(c_in, c_out, k, device, stride=1, zero=False, dims=2):
+    """A dims-D convolution with 'same' padding; k an int or one size a dim."""
+    k = (k,) * dims if isinstance(k, int) else tuple(k)
+    cls = {2: nn.Conv2d, 3: nn.Conv3d}[dims]
+    layer = cls(c_in, c_out, k, stride=stride, padding=tuple(d // 2 for d in k), device=device)
     return _zero(layer) if zero else layer
 
 
@@ -94,7 +97,7 @@ def init_random_(module: nn.Module, generator: torch.Generator, zero_modules: bo
         module.to_empty(device=device)
     with torch.no_grad():
         for m in module.modules():
-            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Linear)):
+            if isinstance(m, (nn.Conv1d, nn.Conv2d, nn.Conv3d, nn.Linear)):
                 if zero_modules and getattr(m, "zero_init", False):
                     for p in m.parameters(recurse=False):
                         p.zero_()
@@ -115,20 +118,26 @@ def init_random_(module: nn.Module, generator: torch.Generator, zero_modules: bo
 # blocks
 # ---------------------------------------------------------------------------
 class ResBlock(nn.Module):
+    """dims 3 (the VideoResBlock's time stack): x (b, c, t, h, w), convolutions
+    of `kernel_size`; with exchange_temb_dims, emb is (b, t, emb_ch) and its
+    projection broadcasts over (h, w) of each frame."""
+
     def __init__(self, c_in, emb_ch, c_out=None, *, use_scale_shift_norm=False, up=False,
-                 down=False, device=None):
+                 down=False, dims=2, kernel_size=3, exchange_temb_dims=False, device=None):
         super().__init__()
         c_out = c_out or c_in
         self.use_scale_shift_norm, self.up, self.down = use_scale_shift_norm, up, down
+        self.exchange_temb_dims = exchange_temb_dims
         self.in_layers = nn.Sequential(_group_norm(c_in, device), nn.SiLU(),
-                                       _conv2d(c_in, c_out, 3, device))
+                                       _conv2d(c_in, c_out, kernel_size, device, dims=dims))
         self.emb_layers = nn.Sequential(
             nn.SiLU(), nn.Linear(emb_ch, 2 * c_out if use_scale_shift_norm else c_out,
                                  device=device))
-        self.out_layers = nn.Sequential(_group_norm(c_out, device), nn.SiLU(), nn.Dropout(0.0),
-                                        _conv2d(c_out, c_out, 3, device, zero=True))
+        self.out_layers = nn.Sequential(
+            _group_norm(c_out, device), nn.SiLU(), nn.Dropout(0.0),
+            _conv2d(c_out, c_out, kernel_size, device, zero=True, dims=dims))
         self.skip_connection = (nn.Identity() if c_out == c_in
-                                else _conv2d(c_in, c_out, 1, device))
+                                else _conv2d(c_in, c_out, 1, device, dims=dims))
 
     def forward(self, x, emb):
         h = silu(group_norm(self.in_layers[0], x))
@@ -137,7 +146,11 @@ class ResBlock(nn.Module):
         elif self.down:
             h, x = avg_down(h), avg_down(x)
         h = conv(self.in_layers[2], h)
-        emb_out = dense(self.emb_layers[1], silu(emb)).to(h.dtype)[:, :, None, None]
+        emb_out = dense(self.emb_layers[1], silu(emb)).to(h.dtype)
+        if self.exchange_temb_dims:
+            emb_out = emb_out.transpose(1, 2)  # (b, t, c) -> (b, c, t)
+        while emb_out.dim() < h.dim():
+            emb_out = emb_out[..., None]
         if self.use_scale_shift_norm:
             scale, shift = emb_out.chunk(2, dim=1)
             h = silu(group_norm(self.out_layers[0], h) * (1 + scale) + shift)

@@ -58,7 +58,8 @@ class PathRules:
 def dit_param_rules() -> PathRules:
     """Tensor parallel over 'model': column-parallel qkv, cross_q, cross_kv,
     clip_kv and mlp_in (weight and bias), row-parallel attn_out, cross_out and
-    mlp_out (weight; the bias is added once, after the reduce).  The
+    mlp_out (weight; the bias is added once, after the reduce); the MoE
+    experts (moe_in, moe_out, weight and bias) whole over 'model'.  The
     optional (head|tail)_layers segment matches the JAX package's
     save_attn_frac layout."""
     seg = r"layers\.(?:(?:head|tail)_layers\.)?\d+\."
@@ -68,6 +69,8 @@ def dit_param_rules() -> PathRules:
         rules.append(Rule(seg + name + r"\.weight$", (MODEL_AXIS, None), parts))
         rules.append(Rule(seg + name + r"\.bias$", (MODEL_AXIS,), parts))
     rules.append(Rule(seg + r"(attn_out|cross_out|mlp_out)\.weight$", (None, MODEL_AXIS)))
+    # expert parallelism: whole experts over 'model' (JAX dit.py:288-292)
+    rules.append(Rule(seg + r"(moe_in|moe_out)\.(weight|bias)$", (MODEL_AXIS,)))
     return PathRules(rules)
 
 

@@ -68,6 +68,7 @@ def ensure_imports():
         "scail_tpu_torch.diffusion.sigma_sampling",
         "scail_tpu_torch.diffusion.embedders",
         "scail_tpu_torch.models.unet",
+        "scail_tpu_torch.models.video_unet",
         "scail_tpu_torch.autoencoding.autoencoder_kl",
         "scail_tpu_torch.autoencoding.vqgan",
         "scail_tpu_torch.inference.engine",

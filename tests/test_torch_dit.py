@@ -7,9 +7,6 @@ where the port's attention wrappers take their plain versions.  Tolerance
 2e-4: the JAX package's own interpret-mode DiT test uses the same.
 """
 
-import re
-from pathlib import Path
-
 import jax
 import jax.numpy as jnp
 import numpy as np
@@ -123,28 +120,13 @@ def test_unknown_attn_impl_raises(impl):
 
 
 def test_moe_and_remat_training_raise():
-    """MoE is not ported and raises; every remat policy of the JAX package
-    builds (tests/test_torch_remat.py trains them), and an unknown one
-    raises."""
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        DiT(DiTConfig(**TINY, num_experts=2))
+    """MoE builds (tests/test_torch_moe.py holds it against the JAX DiT);
+    every remat policy of the JAX package builds (tests/test_torch_remat.py
+    trains them), and an unknown one raises."""
+    moe = DiT(DiTConfig(**TINY, num_experts=2))
+    assert moe.layers[0].moe_in.weight.shape == (2, 48, 32)
     for policy in ("default", "save_attn", "save_attn_frac", "offload_attn"):
         DiT(DiTConfig(**TINY, remat=True, remat_policy=policy))
     with pytest.raises(ValueError, match="unknown remat_policy"):
         DiT(DiTConfig(**TINY, remat=True, remat_policy="save_everything"))
     DiT(DiTConfig(**TINY, remat=False, remat_policy="save_everything"))  # ignored without remat
-
-
-@pytest.mark.parametrize("field, item, heading", [
-    (dict(num_experts=2), "ROADMAP Queue 1, item 15 (ops/moe.py)", "**Item 15 "),
-])
-def test_unported_features_cite_roadmap_items_that_hold_them(field, item, heading):
-    """The errors name the ROADMAP item that holds the work, and that item is
-    in ROADMAP.md's Queue 1 (MoE under item 15 beside ops/moe.py)."""
-    with pytest.raises(NotImplementedError) as err:
-        DiT(DiTConfig(**TINY, **field))
-    assert item in str(err.value)
-    roadmap = (Path(__file__).resolve().parents[1] / "ROADMAP.md").read_text()
-    queue1 = roadmap.split("### Queue 1")[1].split("### Queue 2")[0]
-    section = re.split(r"\n\d+\. \*\*Item", queue1.split(heading, 1)[1])[0]
-    assert "ops/moe.py" in section

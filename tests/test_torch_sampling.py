@@ -421,7 +421,12 @@ def test_port_never_imports_jax():
         "'inference.api', 'inference.engine', 'inference.helpers', 'inference.watermark', "
         "'utils.logging', 'utils.timers', 'utils.metrics_writers', 'utils.profiling', "
         "'training.sync', 'autoencoding.discriminator', 'autoencoding.gan_loss', "
-        "'autoencoding.video_tokenizer', 'autoencoding.engine'):\n"
+        "'autoencoding.video_tokenizer', 'autoencoding.engine', "
+        "'models.video_unet', 'ops.moe', 'ops.local_attn_2d', 'generation', "
+        "'training.prefix_tuning', 'models.zoo.common', 'models.zoo.llama', "
+        "'models.zoo.mixtral', 'models.zoo.gpt', 'models.zoo.gptneo', 'models.zoo.glm', "
+        "'models.zoo.chatglm', 'models.zoo.chatglm23', 'models.zoo.glm130b', "
+        "'models.zoo.glmblock', 'models.zoo.cuda2d'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -451,7 +456,12 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                 "inference/helpers.py", "inference/watermark.py", "utils/logging.py",
                 "utils/timers.py", "utils/metrics_writers.py", "utils/profiling.py",
                 "training/sync.py", "autoencoding/discriminator.py", "autoencoding/gan_loss.py",
-                "autoencoding/video_tokenizer.py", "autoencoding/engine.py"):
+                "autoencoding/video_tokenizer.py", "autoencoding/engine.py",
+                "models/video_unet.py", "ops/moe.py", "ops/local_attn_2d.py", "generation.py",
+                "training/prefix_tuning.py", "models/zoo/common.py", "models/zoo/llama.py",
+                "models/zoo/mixtral.py", "models/zoo/gpt.py", "models/zoo/gptneo.py",
+                "models/zoo/glm.py", "models/zoo/chatglm.py", "models/zoo/chatglm23.py",
+                "models/zoo/glm130b.py", "models/zoo/glmblock.py", "models/zoo/cuda2d.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}
