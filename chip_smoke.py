@@ -26,7 +26,8 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  exactly 60 K7 + 30 K2 + 30 K3 launches; kernel vs plain path.
   5. CLI      -- `scail_tpu_torch.cli.sample_video` with the 1.3B YAMLs, 2 steps,
                  two requests (examples_synth/001, and an 81-frame 512x896
-                 synthetic example); both .mp4 clips decode to the right frames.
+                 synthetic example, its pose and GT clips in MPEG-4); both
+                 .mp4 clips decode to the right frames.
   5b. CLI STA -- the 81-frame request again with --attn-impl sta.
   6. train    -- `scail_tpu_torch.cli.train` with the 1.3B YAML at 512x896, 81
                  frames, batch 1: 2 steps (finite losses, the DiT's parameters
@@ -222,6 +223,28 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  at 2 layers in f32 against the CPU (GLM-130B at width 4,096),
                  relative L2 <= 1e-4.  Each step's seconds.  (c), the MoE DiT
                  under expert parallelism, runs in phase 10.
+  15. encoders -- the encoder zoo at published widths, random bf16 weights
+                 from seeds, one model at a time: T5 v1.1 XL (encode 2 x
+                 512 tokens; 32 greedy tokens through the KV cache; in f32 at
+                 24 + 24 layers the cached greedy tokens equal full
+                 recompute's), BERT-large and RoBERTa-large (8 x 512 with
+                 padding), the three DPR towers (the question through
+                 BertWordPieceTokenizer on a 30,522-entry vocab this script
+                 writes; 16 x 256 passages; a reader pass over 4 x 256),
+                 ViT-L/16 (batch 32 at 224), CaiT-M48 (batch 4 at 448),
+                 EVA-02-L/14 (batch 16 at 224, half the patches masked),
+                 YOLOS-B (2 x 800 x 1,344: its position tables resized from
+                 the 512 x 864 grid), GLM-4V-9B (13.9 B: one 1,120² image, 1,602
+                 image rows spliced into 128 text tokens) and MAE ViT-H/14
+                 (forward, norm_pix loss and backward at batch 16): ms or ms a
+                 token, peak GB, finite outputs of the right shapes; each at
+                 2 layers in f32 against the CPU on one state dict (GLM-4V at
+                 a 224² image; MAE's loss and every gradient), relative L2
+                 <= 1e-4.  The image tokenizer over the VQGAN f16-1024 (codes
+                 card vs CPU at >= 99.9% of positions, the decode <= 1e-4);
+                 GPT-2 with adapters: one adapters-only AdamW step leaves every
+                 base tensor bit-equal and moves every adapter tensor.  No TPU
+                 kernel lies on this phase; its line is {"encoders": ...}.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -288,11 +311,14 @@ def fail(msg):
     sys.exit(1)
 
 
-def timed_ms(fn, iters=3):
-    """Mean milliseconds of fn() on the card, after one warm-up call."""
+def timed_ms(fn, iters=3, warmup=True):
+    """Mean milliseconds of fn() on the card, after one warm-up call (none
+    with warmup False: for the plain versions, whose one call takes 0.05 to
+    13 s on shapes the comparison before it has already run)."""
     import torch
 
-    fn()
+    if warmup:
+        fn()
     start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
     torch.cuda.synchronize()
     start.record()
@@ -485,7 +511,8 @@ def phase_kernels():
             ms = timed_ms(lambda: A.flash_attention(q, kk, v, rope=rope,
                                                     rope_interleaved=bool(interleaved)))
             plain_ms = timed_ms(lambda: A.flash_attention_plain(
-                q, kk, v, rope=rope, rope_interleaved=bool(interleaved)), iters=1)
+                q, kk, v, rope=rope, rope_interleaved=bool(interleaved)), iters=1,
+                warmup=False)
             # the library call: SDPA on q and k with their rotary already applied
             qr = q if rope is None else apply_rotary(q, rope[0][:, None], rope[1][:, None],
                                                      interleaved)
@@ -570,7 +597,8 @@ def _dual_cross_main(q, k1, v1, k2, v2, rows, label):
         fail(f"dual_cross {label}: two calls on the same inputs differ")
     del again
     ms = timed_ms(lambda: A.dual_cross_attention_fused(q, k1, v1, k2, v2), iters=20)
-    plain_ms = timed_ms(lambda: A.dual_cross_attention_plain(q, k1, v1, k2, v2), iters=1)
+    plain_ms = timed_ms(lambda: A.dual_cross_attention_plain(q, k1, v1, k2, v2), iters=1,
+                        warmup=False)
     qt = q.transpose(1, 2)
     sdpa2_ms = timed_ms(lambda: F.scaled_dot_product_attention(
         qt, k1.transpose(1, 2), v1.transpose(1, 2)) + F.scaled_dot_product_attention(
@@ -823,7 +851,8 @@ def _quant_kernels(gen):
                     _rows_view(out[sl]), _rows_view(mm(x[sl], codes, scale, bias, impl="xla")),
                     key=key))
             ms = timed_ms(lambda: mm(x, codes, scale, bias))
-            plain_ms = timed_ms(lambda: mm(x, codes, scale, bias, impl="xla"), iters=1)
+            plain_ms = timed_ms(lambda: mm(x, codes, scale, bias, impl="xla"), iters=1,
+                                warmup=False)
             w = _dequantize(codes, scale, bits)
             library_ms = timed_ms(lambda: F.linear(x, w, bias))
             flops = 2 * m * n * k
@@ -873,7 +902,8 @@ def _int8_kernel(gen, rnd):
         compare(f"{tag} lse", lse[:, :, sl], plse, lse=True)
         del po, plse
     ms = timed_ms(lambda: A.flash_attention_int8(q, k, v), iters=2)
-    plain_ms = timed_ms(lambda: A.flash_attention_int8_plain(q, k, v, block_q=128), iters=1)
+    plain_ms = timed_ms(lambda: A.flash_attention_int8_plain(q, k, v, block_q=128), iters=1,
+                        warmup=False)
     library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
         q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)), iters=2)
     ops = 2 * 2 * H * S * S * 128  # each of QK^T (int8) and P V (bf16)
@@ -945,7 +975,8 @@ def _backward_kernels(gen, rnd, f32):
     ms = {"dq": timed_ms(lambda: A.flash_attention_bwd_dq(*ops, scale=scale)),
           "dkv": timed_ms(lambda: A.flash_attention_bwd_dkv(*ops))}
     plain_ms = {g: timed_ms(lambda: A.flash_attention_bwd_plain(qr, kr, v, o, lse, do,
-                                                                grads=g), iters=1)
+                                                                grads=g),
+                                 iters=1, warmup=False)
                 for g in ("dq", "dkv")}
     # the library call: SDPA's backward (flash), dq, dk and dv in one call
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (qr, kr, v))
@@ -1115,7 +1146,7 @@ def _sta_kernels(gen, rnd, f32):
         acc["ms"] += timed_ms(lambda: S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts,
                                                          ts_q=ts_q))
         acc["plain_ms"] += timed_ms(lambda: S.sta_windowed_plain(
-            qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q), iters=1)
+            qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q), iters=1, warmup=False)
         acc["flops"] += 4 * 24 * _sta_pairs(plan, s, ts_q) * 128
         acc["moved"] += nbytes(qc, k, v, o)
         lib_ms, lib_err["sta_attention_fwd"] = _sdpa_masked_ms(
@@ -1149,7 +1180,7 @@ def _sta_kernels(gen, rnd, f32):
         fwd["ms"] += timed_ms(lambda: S.sta_windowed_fwd(qc, k, v, tables.table, ts=plan.ts,
                                                          ts_q=ts_q, with_lse=True))
         fwd["plain_ms"] += timed_ms(lambda: S.sta_windowed_plain(
-            qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q), iters=1)
+            qc, k, v, tables.table, ts=plan.ts, ts_q=ts_q), iters=1, warmup=False)
         pairs = _sta_pairs(plan, s, ts_q)
         fwd["flops"] += 4 * 12 * pairs * 128
         fwd["moved"] += nbytes(qc, k, v, o, lse)
@@ -1189,7 +1220,8 @@ def _sta_kernels(gen, rnd, f32):
             *ops, tables.inv, tables.lens, ts=plan.ts, ts_q=ts_q))
         for g in ("dq", "dkv"):
             bwd[g]["plain_ms"] += timed_ms(lambda: S.sta_windowed_bwd_plain(
-                qc, k, v, o, lse, dc, tables, ts=plan.ts, ts_q=ts_q, grads=g), iters=1)
+                qc, k, v, o, lse, dc, tables, ts=plan.ts, ts_q=ts_q, grads=g), iters=1,
+                warmup=False)
         bwd["dq"]["flops"] += 6 * 12 * pairs * 128
         bwd["dkv"]["flops"] += 8 * 12 * pairs * 128
         bwd["dq"]["moved"] += nbytes(*ops, dq)
@@ -1234,7 +1266,7 @@ def _ref_rows_fwd(q, k, v, ref):
     compare(f"{tag} lse", lse, plse, lse=True)
     del po, plse
     ms = timed_ms(lambda: A.flash_attention(qr, k, v))
-    plain_ms = timed_ms(lambda: A.flash_attention_plain(qr, k, v), iters=1)
+    plain_ms = timed_ms(lambda: A.flash_attention_plain(qr, k, v), iters=1, warmup=False)
     library_ms = timed_ms(lambda: F.scaled_dot_product_attention(
         qr.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)))
     flops = 4 * q.shape[0] * q.shape[2] * ref * k.shape[1] * 128
@@ -1274,7 +1306,7 @@ def _ref_rows_bwd(q, k, v, do, ref):
     ms = {"dq": timed_ms(lambda: A.flash_attention_bwd_dq(*ops, scale=scale)),
           "dkv": timed_ms(lambda: A.flash_attention_bwd_dkv(*ops))}
     plain_ms = {g: timed_ms(lambda: A.flash_attention_bwd_plain(qr, k, v, o, lse, dr, grads=g),
-                            iters=1) for g in ("dq", "dkv")}
+                            iters=1, warmup=False) for g in ("dq", "dkv")}
     qt, kt, vt = (t.transpose(1, 2).detach().requires_grad_() for t in (qr, k, v))
     out = F.scaled_dot_product_attention(qt, kt, vt)
     library_ms = timed_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), dr.transpose(1, 2),
@@ -1376,6 +1408,38 @@ def phase_dit():
     return fwd_ms
 
 
+def synthetic_example(out_dir, frames, size=(512, 896)):
+    """The fixture of scripts/make_synthetic_example.py (its reference image
+    and moving stick figure, seed 0) with the pose and GT clips written as
+    MPEG-4 through OpenCV (rendered.mp4, GT.mp4, 16 fps), as a pose render
+    usually comes: the script's GIFs take ≈ 30 s to encode at 161 frames,
+    and every request decodes them again."""
+    import importlib.util
+
+    import cv2
+    import numpy as np
+    from PIL import Image
+
+    spec = importlib.util.spec_from_file_location(
+        "make_synthetic_example", os.path.join(ROOT, "scripts", "make_synthetic_example.py"))
+    script = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(script)
+    h, w = size
+    os.makedirs(out_dir, exist_ok=True)
+    ref = np.random.default_rng(0).integers(40, 216, (h, w, 3), np.uint8)
+    Image.fromarray(ref).save(os.path.join(out_dir, "ref.png"))
+    clip = script._stick_figure_frames(frames, h, w, 0)
+    for name in ("rendered.mp4", "GT.mp4"):
+        path = os.path.join(out_dir, name)
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), 16.0, (w, h))
+        if not writer.isOpened():
+            fail(f"OpenCV cannot encode MPEG-4 to {path}")
+        for frame in clip:
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
+        writer.release()
+    log(f"wrote the synthetic fixture ({frames} frames at {h}x{w}, MPEG-4) -> {out_dir}")
+
+
 def phase_cli():
     import numpy as np
 
@@ -1384,8 +1448,7 @@ def phase_cli():
 
     os.makedirs(WORK, exist_ok=True)
     ex81 = os.path.join(WORK, "synthetic_081")
-    subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "make_synthetic_example.py"),
-                    ex81, "--frames", "81", "--size", "512", "896"], check=True, timeout=300)
+    synthetic_example(ex81, 81)
     prompts = os.path.join(WORK, "prompts.txt")
     with open(prompts, "w") as f:
         f.write(f"a character dancing@@{os.path.join(ROOT, 'examples_synth', '001')}\n")
@@ -2354,8 +2417,7 @@ def phase_cli_long():
     from scail_tpu_torch.models.dit import DiT
 
     ex161 = os.path.join(WORK, "synthetic_161")
-    subprocess.run([sys.executable, os.path.join(ROOT, "scripts", "make_synthetic_example.py"),
-                    ex161, "--frames", "161", "--size", "512", "896"], check=True, timeout=600)
+    synthetic_example(ex161, 161)
     prompts = os.path.join(WORK, "prompts_long.txt")
     with open(prompts, "w") as f:
         f.write(f"a character dancing@@{ex161}\n")
@@ -4971,6 +5033,520 @@ def phase_zoo():
     return moe_counts, stats
 
 
+# ---------------------------------------------------------------------------
+# phase 15: the encoder zoo, the adapters, the tokenizers
+# ---------------------------------------------------------------------------
+# published configurations, written out (the card's machine has no
+# transformers to read them from): google/t5-v1_1-xl, bert-large-uncased,
+# roberta-large, facebook/dpr-*-single-nq-base, google/vit-large-patch16-224,
+# CaiT-M48 at 448 (Touvron et al. 2021, arXiv:2103.17239, table 1), EVA-02-L/14
+# (Fang et al. 2023, arXiv:2303.11331), THUDM/glm-4v-9b (GLM-4-9B with the
+# EVA2-CLIP-E tower), facebook/vit-mae-huge, hustvl/yolos-base
+T5_XL = dict(vocab_size=32128, dim=2048, dim_kv=64, num_heads=32, inner_hidden_size=5120,
+             num_layers=24, num_decoder_layers=24, num_buckets=32, max_distance=128,
+             gated_mlp=True, tie_word_embeddings=False)
+BERT_LARGE = dict(vocab_size=30522, dim=1024, num_heads=16, num_layers=24,
+                  inner_hidden_size=4096, max_len=512, type_vocab_size=2, eps=1e-12)
+ROBERTA_LARGE = dict(BERT_LARGE, vocab_size=50265, max_len=514, type_vocab_size=1, eps=1e-5,
+                     position_style="roberta", pad_token_id=1)
+BERT_BASE = dict(vocab_size=30522, dim=768, num_heads=12, num_layers=12, inner_hidden_size=3072,
+                 max_len=512, type_vocab_size=2, eps=1e-12)
+VIT_L16 = dict(image_size=224, patch_size=16, dim=1024, num_heads=16, num_layers=24,
+               inner_hidden_size=4096, num_classes=1000, eps=1e-12)
+CAIT_M48 = dict(image_size=448, patch_size=16, dim=768, num_heads=16, num_layers=48,
+                dec_num_layers=2, inner_hidden_size=3072, num_classes=1000, eps=1e-6)
+EVA02_L = dict(image_size=224, patch_size=14, dim=1024, num_heads=16, num_layers=24,
+               inner_hidden_size=2730, predict_feature_dim=1024, eps=1e-6)
+EVA2_CLIP_E = dict(image_size=1120, patch_size=14, dim=1792, num_heads=16, num_layers=63,
+                   inner_hidden_size=15360, eps=1e-6)
+GLM4V_ADAPTER = dict(proj_hidden_size=4096, adapter_inner=13696)
+MAE_H14 = dict(image_size=224, patch_size=14, dim=1280, num_heads=16, num_layers=32,
+               inner_hidden_size=5120, decoder_dim=512, decoder_num_heads=16,
+               decoder_num_layers=8, decoder_inner_hidden_size=2048, mask_ratio=0.75, eps=1e-12)
+YOLOS_B = dict(image_size=(512, 864), patch_size=16, dim=768, num_heads=12, num_layers=12,
+               inner_hidden_size=3072, num_detection_tokens=100, num_labels=91,
+               use_mid_position_embeddings=True, eps=1e-12)
+T5_ENC = (2, 512)
+T5_NEW = 32
+BERT_INPUT = (8, 512)
+GLM4V_TEXT = 128
+# the image tokenizer's codes, card against CPU: near-ties between two codes
+# may resolve either way under the devices' rounding
+CODE_AGREEMENT = 0.999
+
+
+def _cpu_twin(card_model, cls, cfg):
+    """cls(cfg) on the CPU holding the card model's state dict."""
+    import torch
+
+    cpu = cls(cfg, device="meta")
+    cpu.load_state_dict({k: v.cpu() for k, v in card_model.state_dict().items()}, assign=True)
+    return cpu.to(torch.float32)
+
+
+def _against_cpu(label, cls, cfg, run, make_inputs, stats, seed):
+    """`cls(cfg)` from a seed on the card in f32 (TF32 off) and its CPU twin
+    from one state dict, each through run(model, *inputs) on
+    make_inputs(device, generator); the relative L2 of every output against
+    the CPU's must stay <= ZOO_REL_TOL.  Returns the largest."""
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+
+    card = _build_lm(cls, cfg, torch.float32, seed=seed)
+    cpu = _cpu_twin(card, cls, cfg)
+    inputs = make_inputs("cpu", torch.Generator().manual_seed(seed + 1))
+    with full_f32(), torch.inference_mode():
+        got = run(card, *(a.cuda() if torch.is_tensor(a) else a for a in inputs))
+        want = run(cpu, *inputs)
+    got = got if isinstance(got, tuple) else (got,)
+    want = want if isinstance(want, tuple) else (want,)
+    rel = max(_rel_l2(g.cpu(), w) for g, w in zip(got, want))
+    stats["card_vs_cpu"] = rel
+    log(f"encoders: {label}: card vs CPU (f32, 2 layers) relative L2 {rel:.3e} (tol "
+        f"{ZOO_REL_TOL:.0e})")
+    if not rel <= ZOO_REL_TOL:
+        fail(f"encoders: {label} on the card disagrees with the CPU ({rel:.3e})")
+    del card, cpu
+    _free_card()
+    return rel
+
+
+def _on_card(label, cls, cfg, run, args, check, stats, seed=51):
+    """`cls(cfg)` in bf16 from a seed, one parameter at a time on the card;
+    run(model, *args) timed (a warm-up, then one call); check(out) -> None
+    or what is wrong.  Fills stats and returns the output."""
+    import torch
+
+    t0 = time.perf_counter()
+    model = _build_lm(cls, cfg, torch.bfloat16, seed=seed)
+    build_s = time.perf_counter() - t0
+    with torch.inference_mode():
+        out, s, peak = _timed_on_card(lambda: run(model, *args))
+    outs = out if isinstance(out, tuple) else (out,)
+    bad = check(out) or next((f"output {i} not finite" for i, o in enumerate(outs)
+                              if torch.is_tensor(o) and o.is_floating_point()
+                              and not torch.isfinite(o).all()), None)
+    stats.update(params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+                 param_gb=_param_gb(model), build_s=build_s, forward_ms=s * 1e3, peak_gb=peak,
+                 shapes=[tuple(o.shape) for o in outs if torch.is_tensor(o)])
+    log(f"encoders: {label}: {stats['params_b']:.3f} B parameters ({stats['param_gb']:.2f} GB "
+        f"bf16, built in {build_s:.1f} s): {s * 1e3:.1f} ms, peak {peak:.2f} GB, outputs "
+        f"{stats['shapes']}")
+    if bad:
+        fail(f"encoders: {label}: {bad}")
+    return model, out
+
+
+def _shape_check(*want):
+    def check(out):
+        outs = out if isinstance(out, tuple) else (out,)
+        got = [tuple(o.shape) for o in outs[:len(want)]]
+        return None if got == list(want) else f"output shapes {got}, not {list(want)}"
+    return check
+
+
+def _images(b, h, w, dev, g):
+    import torch
+
+    return torch.randn(b, 3, h, w, generator=g, device=dev)
+
+
+def _enc_t5(stats):
+    """T5 v1.1 XL: encode 2 x 512 tokens (bf16, timed), 32 greedy tokens
+    through the cache (timed); in f32 at full depth the cached greedy tokens
+    equal full recompute's; at 2 + 2 layers card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+    from scail_tpu_torch.models.zoo.t5 import T5, T5Config, t5_greedy_decode
+
+    cfg = T5Config(**T5_XL)
+    g = torch.Generator(device="cuda").manual_seed(52)
+    ids = torch.randint(0, cfg.vocab_size, T5_ENC, generator=g, device="cuda")
+    mask = torch.ones_like(ids)
+    mask[1, T5_ENC[1] // 2:] = 0
+    rec = stats.setdefault("t5_xl", {})
+    model, _ = _on_card("T5 v1.1 XL encode", T5, cfg, lambda m, i, k: m.encode(i, k), (ids, mask),
+                        _shape_check((*T5_ENC, cfg.dim)), rec)
+    with torch.inference_mode():
+        toks, s, peak = _timed_on_card(lambda: t5_greedy_decode(model, ids, mask, T5_NEW))
+    rec.update(greedy_ms_per_token=s * 1e3 / T5_NEW, greedy_peak_gb=peak)
+    if tuple(toks.shape) != (T5_ENC[0], T5_NEW):
+        fail(f"encoders: T5 greedy decode gave {tuple(toks.shape)}")
+    del model
+    _free_card()
+    model = _build_lm(T5, cfg, torch.float32, seed=53)
+
+    def full_recompute():
+        enc = model.encode(ids, mask)
+        dec = torch.zeros(T5_ENC[0], 1, dtype=torch.long, device="cuda")
+        for _ in range(T5_NEW):
+            nxt = model.decode(dec, enc, mask)[:, -1].argmax(-1)
+            dec = torch.cat([dec, nxt[:, None]], dim=1)
+        return dec[:, 1:]
+
+    with full_f32(), torch.inference_mode():
+        cached = t5_greedy_decode(model, ids, mask, T5_NEW)
+        full = full_recompute()
+    rec["greedy_cached_equals_full_f32"] = bool(torch.equal(cached, full))
+    log(f"encoders: T5 v1.1 XL greedy {rec['greedy_ms_per_token']:.1f} ms a token (bf16, peak "
+        f"{peak:.2f} GB); in f32 at {cfg.num_layers} + {cfg.num_decoder_layers} layers cached == "
+        f"full recompute: "
+        f"{rec['greedy_cached_equals_full_f32']}")
+    if not rec["greedy_cached_equals_full_f32"]:
+        fail("encoders: T5's cached greedy tokens differ from full recompute's in f32")
+    del model
+    _free_card()
+    small = dataclasses.replace(cfg, num_layers=2, num_decoder_layers=2)
+
+    def inputs(dev, gen):
+        i = torch.randint(0, cfg.vocab_size, (2, 16), generator=gen).to(dev)
+        m = torch.ones_like(i)
+        m[1, 11:] = 0
+        return i, m, torch.randint(0, cfg.vocab_size, (2, 8), generator=gen).to(dev)
+
+    _against_cpu("T5 v1.1 XL", T5, small, lambda m, i, k, d: m(i, k, d), inputs, rec, 54)
+
+
+def _padded(vocab, pad_id, b, s, dev, g):
+    import torch
+
+    ids = torch.randint(2, vocab, (b, s), generator=g, device=dev)
+    mask = torch.ones_like(ids)
+    lengths = torch.linspace(s // 4, s, b, device=dev).long()
+    mask[torch.arange(s, device=dev)[None] >= lengths[:, None]] = 0
+    ids[mask == 0] = pad_id
+    return ids, mask
+
+
+def _enc_bert(stats):
+    """BERT-large and RoBERTa-large: 8 x 512 tokens with padding in the mask."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.models.zoo.bert import Bert, BertConfig
+
+    for label, kw in (("bert_large", BERT_LARGE), ("roberta_large", ROBERTA_LARGE)):
+        cfg = BertConfig(**kw)
+        g = torch.Generator(device="cuda").manual_seed(55)
+        args = _padded(cfg.vocab_size, cfg.pad_token_id, *BERT_INPUT, "cuda", g)
+        rec = stats.setdefault(label, {})
+        model, _ = _on_card(label, Bert, cfg, lambda m, i, k: m(i, k), args,
+                            _shape_check((*BERT_INPUT, cfg.dim), (BERT_INPUT[0], cfg.dim)), rec)
+        del model
+        _free_card()
+        _against_cpu(label, Bert, dataclasses.replace(cfg, num_layers=2),
+                     lambda m, i, k: m(i, k),
+                     lambda dev, gen: _padded(cfg.vocab_size, cfg.pad_token_id, 2, 32, dev, gen),
+                     rec, 56)
+
+
+DPR_QUESTION = "[CLS] who wrote on the origin of species by means of natural selection ? [SEP]"
+DPR_WORDS = ("who wrote on the origin of species by means natural selection darwin charles "
+             "book published in 1859 evolution ?").split()
+
+
+def _dpr_vocab():
+    """A vocab.txt of bert-base-uncased's size: the special tokens, the
+    question's words, [unused] fillers."""
+    path = os.path.join(WORK, "dpr_vocab.txt")
+    words = ["[PAD]", "[UNK]", "[CLS]", "[SEP]", "[MASK]"] + DPR_WORDS
+    words += [f"[unused{i}]" for i in range(BERT_BASE["vocab_size"] - len(words))]
+    os.makedirs(WORK, exist_ok=True)
+    with open(path, "w") as f:
+        f.write("\n".join(words) + "\n")
+    return path
+
+
+def _enc_dpr(stats):
+    """The three DPR towers (BERT-base, projection 0): the question through
+    BertWordPieceTokenizer to ids and the question encoder, 16 x 256
+    passages through the context encoder, one reader pass over 4 x 256."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.models.zoo.bert import BertConfig
+    from scail_tpu_torch.models.zoo.dpr import DPRConfig, DPREncoder, DPRReader
+    from scail_tpu_torch.tokenization import BertWordPieceTokenizer
+
+    tok = BertWordPieceTokenizer(_dpr_vocab(), tokenizer_model_type="bert-base-uncased")
+    q = tok.EncodeAsIds(DPR_QUESTION).tokenization
+    unk = tok.get_command("unk").Id
+    if unk in q or q[0] != tok.get_command("ENC").Id or q[-1] != tok.get_command("sep").Id:
+        fail(f"encoders: DPR question tokenized to {q}")
+    cfg = DPRConfig(BertConfig(**BERT_BASE), 0)
+    g = torch.Generator(device="cuda").manual_seed(57)
+    qids = torch.tensor([q], device="cuda")
+    d = cfg.bert.dim
+    runs = (("dpr_question", DPREncoder, (qids, torch.ones_like(qids)), ((1, d),)),
+            ("dpr_context", DPREncoder, _padded(cfg.bert.vocab_size, 0, 16, 256, "cuda", g),
+             ((16, d),)),
+            ("dpr_reader", DPRReader, _padded(cfg.bert.vocab_size, 0, 4, 256, "cuda", g),
+             ((4, 256), (4, 256), (4,))))
+    for label, cls, args, shapes in runs:
+        rec = stats.setdefault(label, {})
+        model, _ = _on_card(label, cls, cfg, lambda m, i, k: m(i, k), args,
+                            _shape_check(*shapes), rec)
+        del model
+        _free_card()
+        small = dataclasses.replace(cfg, bert=dataclasses.replace(cfg.bert, num_layers=2))
+        _against_cpu(label, cls, small, lambda m, i, k: m(i, k),
+                     lambda dev, gen: _padded(cfg.bert.vocab_size, 0, 2, 32, dev, gen), rec, 58)
+    stats["dpr_question"]["question_tokens"] = len(q)
+
+
+def _enc_vision(stats):
+    """ViT-L/16, CaiT-M48 at 448, EVA-02-L/14 (half the patches masked) and
+    YOLOS-B at 800 x 1,344 (its position tables resized from the 512 x 864
+    grid); each at 2 layers against the CPU on one image."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.models.zoo.cait import CaiT, CaiTConfig
+    from scail_tpu_torch.models.zoo.eva2 import EVA2, EVA2Config
+    from scail_tpu_torch.models.zoo.vit import ViT, ViTConfig
+    from scail_tpu_torch.models.zoo.yolos import Yolos, YolosConfig
+
+    def eva_inputs(b, dev, g):
+        n = (224 // 14) ** 2
+        masked = torch.rand(b, n, generator=g, device=dev).argsort(1) < n // 2
+        return _images(b, 224, 224, dev, g), masked
+
+    cases = (
+        ("vit_l16", ViT, ViTConfig(**VIT_L16), lambda m, x: m(x),
+         lambda dev, g: (_images(32, 224, 224, dev, g),), ((32, 1000),),
+         lambda dev, g: (_images(1, 224, 224, dev, g),)),
+        ("cait_m48", CaiT, CaiTConfig(**CAIT_M48), lambda m, x: m(x),
+         lambda dev, g: (_images(4, 448, 448, dev, g),), ((4, 1000),),
+         lambda dev, g: (_images(1, 448, 448, dev, g),)),
+        ("eva02_l", EVA2, EVA2Config(**EVA02_L), lambda m, x, k: m(x, k),
+         lambda dev, g: eva_inputs(16, dev, g), ((16, 256, 1024),),
+         lambda dev, g: eva_inputs(1, dev, g)),
+        ("yolos_b", Yolos, YolosConfig(**YOLOS_B), lambda m, x: m(x),
+         lambda dev, g: (_images(2, 800, 1344, dev, g),), ((2, 100, 92), (2, 100, 4)),
+         lambda dev, g: (_images(1, 256, 432, dev, g),)),
+    )
+    for label, cls, cfg, run, make, shapes, small_make in cases:
+        rec = stats.setdefault(label, {})
+        args = make("cuda", torch.Generator(device="cuda").manual_seed(59))
+        model, _ = _on_card(label, cls, cfg, run, args, _shape_check(*shapes), rec)
+        del model, args
+        _free_card()
+        _against_cpu(label, cls, dataclasses.replace(cfg, num_layers=2), run,
+                     small_make, rec, 60)
+    stats["yolos_b"]["patch_tokens"] = (800 // 16) * (1344 // 16)
+
+
+def _enc_glm4v(stats):
+    """GLM-4V-9B: GLM-4-9B with the EVA2-CLIP-E tower at 1,120²: one image
+    (1,602 image rows) spliced into 128 text tokens; at 2 + 2 layers and a
+    224² image card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.models.zoo.evaclip import EVACLIPConfig
+    from scail_tpu_torch.models.zoo.glm import GlmConfig
+    from scail_tpu_torch.models.zoo.glm4v import GLM4V, GLM4VConfig
+
+    cfg = GLM4VConfig(glm=GlmConfig(), vit=EVACLIPConfig(**EVA2_CLIP_E), **GLM4V_ADAPTER)
+
+    def inputs(c, text, dev, g):
+        n = c.image_length
+        s = text + n
+        toks = torch.randint(0, c.glm.vocab_size, (1, s), generator=g, device=dev)
+        mask = torch.zeros(1, s, dtype=torch.bool, device=dev)
+        mask[0, text // 2:text // 2 + n] = True
+        return toks, _images(1, c.vit.image_size, c.vit.image_size, dev, g), mask
+
+    rec = stats.setdefault("glm4v_9b", {})
+    args = inputs(cfg, GLM4V_TEXT, "cuda", torch.Generator(device="cuda").manual_seed(61))
+    run = lambda m, t, x, k: m(t, x, k)[0]  # noqa: E731
+    model, _ = _on_card("GLM-4V-9B", GLM4V, cfg, run, args,
+                        _shape_check((1, GLM4V_TEXT + cfg.image_length, cfg.glm.vocab_size)), rec)
+    rec["image_rows"] = cfg.image_length
+    del model, args
+    _free_card()
+    small = dataclasses.replace(cfg, glm=dataclasses.replace(cfg.glm, num_layers=2),
+                                vit=dataclasses.replace(cfg.vit, num_layers=2, image_size=224))
+    _against_cpu("GLM-4V-9B", GLM4V, small, run, lambda dev, g: inputs(small, 16, dev, g), rec, 62)
+
+
+def _enc_mae(stats):
+    """MAE ViT-H/14: forward, mae_loss(norm_pix=True) and backward at batch
+    16, 224² (bf16, timed); at 2 + 2 layers in f32 the loss and every
+    parameter gradient card against CPU."""
+    import dataclasses
+
+    import torch
+
+    from scail_tpu_torch.evals import full_f32
+    from scail_tpu_torch.models.zoo.mae import MAE, MAEConfig, mae_loss
+
+    cfg = MAEConfig(**MAE_H14)
+    g = torch.Generator(device="cuda").manual_seed(63)
+    x, noise = _images(16, 224, 224, "cuda", g), torch.rand(16, cfg.num_patches, generator=g,
+                                                            device="cuda")
+    rec = stats.setdefault("mae_h14", {})
+
+    def step(m, x, noise):
+        m.zero_grad(set_to_none=True)
+        with torch.enable_grad():
+            loss = mae_loss(m, x, noise, norm_pix=True)
+            loss.backward()
+        return loss.detach()
+
+    t0 = time.perf_counter()
+    model = _build_lm(MAE, cfg, torch.bfloat16, seed=64).requires_grad_(True)
+    build_s = time.perf_counter() - t0
+    loss, s, peak = _timed_on_card(lambda: step(model, x, noise))
+    grads_ok = all(p.grad is not None and torch.isfinite(p.grad).all() for p in model.parameters())
+    rec.update(params_b=sum(p.numel() for p in model.parameters()) / 1e9,
+               param_gb=_param_gb(model), build_s=build_s, step_ms=s * 1e3, peak_gb=peak,
+               loss=float(loss))
+    log(f"encoders: MAE ViT-H/14: {rec['params_b']:.3f} B parameters: forward + loss + backward "
+        f"at batch 16 {s * 1e3:.1f} ms, peak {peak:.2f} GB, loss {float(loss):.4f}")
+    if not (torch.isfinite(loss) and grads_ok):
+        fail("encoders: MAE's loss or gradients are not finite")
+    del model
+    _free_card()
+    small = dataclasses.replace(cfg, num_layers=2, decoder_num_layers=2)
+    card = _build_lm(MAE, small, torch.float32, seed=65).requires_grad_(True)
+    cpu = _cpu_twin(card, MAE, small).requires_grad_(True)
+    cg = torch.Generator().manual_seed(66)
+    xs, ns = _images(1, 224, 224, "cpu", cg), torch.rand(1, cfg.num_patches, generator=cg)
+    with full_f32():
+        got = step(card, xs.cuda(), ns.cuda())
+    want = step(cpu, xs, ns)
+    gc_, gw = (torch.cat([p.grad.flatten().cpu() for p in m.parameters()]) for m in (card, cpu))
+    rec["card_vs_cpu"] = max(_rel_l2(got.cpu()[None], want[None]), _rel_l2(gc_, gw))
+    log(f"encoders: MAE ViT-H/14: card vs CPU (f32, 2 + 2 layers) loss and gradients "
+        f"relative L2 {rec['card_vs_cpu']:.3e} (tol {ZOO_REL_TOL:.0e})")
+    if not rec["card_vs_cpu"] <= ZOO_REL_TOL:
+        fail("encoders: MAE's loss or gradients on the card disagree with the CPU")
+    del card, cpu
+    _free_card()
+
+
+def _enc_image_tokenizer(stats):
+    """ImageTokenizer over the VQGAN f16-1024 (phase 13's), f32: 4 images
+    at 256² encoded and decoded on the card; one image on the card and the
+    CPU from one state dict: the codes agree at >= CODE_AGREEMENT of the
+    positions, the decode of the CPU's codes within ZOO_REL_TOL."""
+    import torch
+
+    from scail_tpu_torch.autoencoding.vqgan import VQModel
+    from scail_tpu_torch.evals import full_f32
+    from scail_tpu_torch.tokenization import ImageTokenizer
+
+    g = torch.Generator(device="cuda").manual_seed(67)
+    model = VQModel(**VQGAN_F16_1024, device="cuda").init_random_(g).eval()
+    tok = ImageTokenizer(model)
+    imgs = torch.rand(4, 256, 256, 3, generator=g, device="cuda")
+    with full_f32():
+        ids, s_enc, peak = _timed_on_card(lambda: tok.EncodeAsIds(imgs, add_normalization=True))
+        rec_imgs, s_dec, _ = _timed_on_card(lambda: tok.DecodeIds(ids, (4, 16, 16)))
+    if tuple(ids.shape) != (4, 256) or tuple(rec_imgs.shape) != (4, 256, 256, 3) or \
+            not torch.isfinite(rec_imgs).all():
+        fail(f"encoders: image tokenizer gave {tuple(ids.shape)} / {tuple(rec_imgs.shape)}")
+    cpu_model = VQModel(**VQGAN_F16_1024, device="cpu").eval()
+    cpu_tok = ImageTokenizer(cpu_model, {k: v.cpu() for k, v in model.state_dict().items()})
+    one = imgs[:1].cpu()
+    with full_f32():
+        card_ids = tok.EncodeAsIds(one, add_normalization=True).cpu()
+        cpu_ids = cpu_tok.EncodeAsIds(one, add_normalization=True)
+        card_dec = tok.DecodeIds(cpu_ids, (1, 16, 16)).cpu()
+    cpu_dec = cpu_tok.DecodeIds(cpu_ids, (1, 16, 16))
+    agree = float((card_ids == cpu_ids).float().mean())
+    rel = _rel_l2(card_dec, cpu_dec)
+    stats["image_tokenizer"] = {"encode_ms": s_enc * 1e3, "decode_ms": s_dec * 1e3,
+                                "peak_gb": peak, "code_agreement": agree, "card_vs_cpu": rel}
+    log(f"encoders: image tokenizer (VQGAN f16-1024, f32): encode 4 x 256² {s_enc * 1e3:.1f} ms, "
+        f"decode {s_dec * 1e3:.1f} ms; card vs CPU: codes agree at {agree:.4f} of positions "
+        f"(at least {CODE_AGREEMENT}), decode relative L2 {rel:.3e} (tol {ZOO_REL_TOL:.0e})")
+    if agree < CODE_AGREEMENT or not rel <= ZOO_REL_TOL:
+        fail("encoders: the image tokenizer on the card disagrees with the CPU")
+    del model, tok
+    _free_card()
+
+
+def _enc_adapters(stats):
+    """GPT-2 with adapters (hidden 64): one AdamW step of
+    adapters_only_optimizer on 4 x 128 tokens; every base tensor bit-equal
+    afterwards, every adapter tensor moved."""
+    import torch
+    import torch.nn.functional as F
+
+    from scail_tpu_torch.models.common import container
+    from scail_tpu_torch.models.zoo.gpt import GPT, GPTConfig
+    from scail_tpu_torch.training.adapters import adapters_only_optimizer, init_adapter_params
+
+    cfg = GPTConfig()
+    g = torch.Generator(device="cuda").manual_seed(68)
+    base = _build_lm(GPT, cfg, torch.float32, seed=69)
+    holder = container(base=base, adapters=init_adapter_params(g, cfg.num_layers, cfg.dim, 64))
+    before = {k: v.detach().clone() for k, v in holder.state_dict().items()}
+    opt = adapters_only_optimizer(lambda ps: torch.optim.AdamW(ps, lr=1e-3),
+                                  holder.named_parameters())
+    toks = torch.randint(0, cfg.vocab_size, (4, 129), generator=g, device="cuda")
+
+    def step():
+        opt.zero_grad(set_to_none=True)
+        logits = base(toks[:, :-1], adapters=holder.adapters)[0]
+        loss = F.cross_entropy(logits.reshape(-1, cfg.vocab_size), toks[:, 1:].reshape(-1))
+        loss.backward()
+        opt.step()
+        return loss.detach()
+
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    loss = step()
+    torch.cuda.synchronize()
+    s = time.perf_counter() - t0
+    after = holder.state_dict()
+    frozen = [k for k in before if k.startswith("base.")]
+    changed = [k for k in frozen if not torch.equal(before[k], after[k])]
+    still = [k for k in before if k.startswith("adapters.") and torch.equal(before[k], after[k])]
+    stats["adapters"] = {"step_ms": s * 1e3, "loss": float(loss), "base_tensors": len(frozen),
+                         "base_bit_equal": not changed, "adapter_tensors_unmoved": len(still)}
+    log(f"encoders: GPT-2 + adapters: one adapters-only AdamW step {s * 1e3:.1f} ms, loss "
+        f"{float(loss):.4f}; {len(frozen)} base tensors bit-equal afterwards: {not changed}; "
+        f"adapter tensors unmoved: {len(still)}")
+    if changed or still or not torch.isfinite(loss):
+        fail(f"encoders: adapters-only step moved the base ({changed[:3]}) or left adapters "
+             f"({still[:3]})")
+    del base, holder, opt
+    _free_card()
+
+
+def phase_encoders():
+    """Phase 15: the encoder zoo at published widths (bf16, random weights
+    from seeds), each also in f32 at 2 layers against the CPU; T5's cached
+    greedy decoding; MAE's training step; the image tokenizer; an
+    adapters-only step.  Returns the phase's record."""
+    t_phase = time.perf_counter()
+    stats = {"seconds": {}}
+    steps = (("t5", _enc_t5), ("bert", _enc_bert), ("dpr", _enc_dpr), ("vision", _enc_vision),
+             ("glm4v", _enc_glm4v), ("mae", _enc_mae), ("image_tokenizer", _enc_image_tokenizer),
+             ("adapters", _enc_adapters))
+    for name, fn in steps:
+        t0 = time.perf_counter()
+        fn(stats)
+        stats["seconds"][name] = time.perf_counter() - t0
+        log(f"phase 15 ({name}): {stats['seconds'][name]:.1f} s")
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 15 (encoders): {stats['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stats["seconds"].items()) + ")")
+    print(json.dumps({"encoders": stats}, default=str), flush=True)
+    return stats
+
+
 # seconds of each phase of this run, in order
 PHASE_S = {}
 
@@ -5011,6 +5587,7 @@ def main():
     zoo_counts, pd_counts, image = _phase("image", phase_image)
     fit_counts, hook_counts, trainers = _phase("trainers", phase_trainers, ex81)
     moe_counts, zoo = _phase("zoo", phase_zoo)
+    encoders = _phase("encoders", phase_encoders)
     _no_jax_loaded("the whole run")
 
     import torch
@@ -5042,7 +5619,9 @@ def main():
         f"phase {trainers['phase_s']:.1f} s; zoo phase {zoo['phase_s']:.1f} s (SVD UNet forward "
         f"{zoo['svd']['forward_ms']:.1f} ms, MoE DiT forward {zoo['moe_dit']['forward_ms']:.1f} ms, "
         f"Llama-2-7B {zoo['llama']['bfloat16']['greedy_cached']['ms_per_token']:.1f} ms a "
-        f"token); phases (s) "
+        f"token); encoders phase {encoders['phase_s']:.1f} s (GLM-4V-9B forward "
+        f"{encoders['glm4v_9b']['forward_ms']:.1f} ms, T5 XL greedy "
+        f"{encoders['t5_xl']['greedy_ms_per_token']:.1f} ms a token); phases (s) "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
         + f"; whole run {time.perf_counter() - t_start:.0f} s; card {card}")
     print(json.dumps({"phase_seconds": PHASE_S}), flush=True)

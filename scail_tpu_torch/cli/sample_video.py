@@ -141,18 +141,23 @@ def prepare_case(engine, args, text: str):
 
     shape = (smpl_latent.shape[1], 16, target_h // 8, target_w // 8)
     meta = dict(prompt=prompt, input_dir=input_dir, driving_fps=driving_fps, gt=gt,
-                smpl_render=smpl_render, image_to_save=np.repeat(image[None], T_in, axis=1))
+                smpl_render=smpl_render, image=image, frames=T_in)
     return c, uc, shape, meta
 
 
 def _save_concat(meta, samples, save_dir, case):
     """Pose | reference | GT | sample grid, every panel aligned to the
     sample's (t, h, w)."""
+    def unit(x):  # [-1, 1] -> [0, 1], in one new array
+        y = x + 1
+        y /= 2
+        return np.clip(y, 0, 1, out=y)
+
     gt_h, gt_w = meta["gt"].shape[-2:]
     up = resize_bilinear_host(meta["smpl_render"], gt_h, gt_w)
-    panels = [np.clip((up[None] + 1) / 2, 0, 1),
-              np.clip((meta["image_to_save"] + 1) / 2, 0, 1),
-              np.clip((meta["gt"][None] + 1) / 2, 0, 1), samples]
+    ref = unit(meta["image"][None])  # the reference image on every frame, as a view
+    panels = [unit(up[None]), np.broadcast_to(ref, (1, meta["frames"], *ref.shape[2:])),
+              unit(meta["gt"][None]), samples]
     t_min = min(e.shape[1] for e in panels)
     h_s, w_s = samples.shape[-2:]
     panels = [e[:, :t_min] if e.shape[-2:] == (h_s, w_s)

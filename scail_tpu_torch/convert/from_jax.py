@@ -486,3 +486,57 @@ chatglm2_state_dict_from_jax = lm_state_dict_from_jax
 glm130b_state_dict_from_jax = lm_state_dict_from_jax
 glmblock_state_dict_from_jax = lm_state_dict_from_jax
 cuda2d_state_dict_from_jax = lm_state_dict_from_jax
+
+
+# ---------------------------------------------------------------------------
+# the encoder zoo, the adapters and the MLP head (models/zoo/, training/)
+# ---------------------------------------------------------------------------
+_ENCODER_STACKS = ("layers", "enc_layers", "dec_layers")
+# JAX leaf names that nn.Module owns as attributes, and the port's names
+_ENCODER_RENAMES = {"type": "token_type"}
+
+
+def encoder_state_dict_from_jax(params) -> Dict[str, torch.Tensor]:
+    """A zoo encoder's pytree (`init_*_params` or a `*_params_from_hf` /
+    `*_params_from_sat` converter, or a tree that nests them, as GLM-4V's
+    {vit, adapter, glm}) -> the port model's `state_dict()`: each stacked
+    leaf under a `layers` / `enc_layers` / `dec_layers` key split into
+    `<key>.i.*`, 2-D kernels transposed to (out, in), a patch embedding's
+    HWIO kernel to (out, in, kh, kw); a 4-D kernel elsewhere (GLM-4V's
+    adapter conv) is the SAT layout already and keeps it."""
+    sd = {}
+    for path, arr in _flatten(params):
+        parts = [_ENCODER_RENAMES.get(p, p) for p in path.split("/")]
+        stack = next((i for i, p in enumerate(parts) if p in _ENCODER_STACKS), None)
+        rows = [(None, arr)] if stack is None else list(enumerate(arr))
+        for i, a in rows:
+            names = list(parts)
+            if i is not None:
+                names.insert(stack + 1, str(i))
+            if names[-1] == "kernel":
+                names[-1] = "weight"
+                if a.ndim == 2:
+                    a = a.T
+                elif a.ndim == 4 and any(p == "patch_embed" for p in names):
+                    a = a.transpose(3, 2, 0, 1)
+            sd[".".join(names)] = _tensor(a)
+    return sd
+
+
+def adapters_state_dict_from_jax(adapters) -> Dict[str, torch.Tensor]:
+    """`init_adapter_params`' {attn, mlp}/{down, up}/{kernel (L, in, out),
+    bias (L, out)} -> `training/adapters.py` `Adapters.state_dict()`:
+    layer i's at `layers.i.{attn,mlp}.{down,up}`."""
+    sd = {}
+    for path, arr in _flatten(adapters):
+        for i, a in enumerate(arr):
+            key, val = _linear_leaf(path, a)
+            sd[f"layers.{i}.{key}"] = _tensor(val)
+    return sd
+
+
+def mlp_head_state_dict_from_jax(layers) -> Dict[str, torch.Tensor]:
+    """`init_mlp_head_params`' list of {kernel, bias} -> the port's
+    `MLPHead.state_dict()` (`layers.i.weight` / `.bias`)."""
+    return {f"layers.{i}.{k}": _tensor(v) for i, p in enumerate(layers)
+            for k, v in (_linear_leaf(leaf, np.asarray(a)) for leaf, a in p.items())}

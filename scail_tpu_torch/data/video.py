@@ -90,9 +90,17 @@ def load_image_chw_normalized(path: str) -> np.ndarray:
     return img.transpose(2, 0, 1)[None] * 2.0 - 1.0
 
 
+# (v - 127.5) / 127.5 in float32 for each uint8 value v
+_UNIT_LUT = (np.arange(256, dtype=np.float32) - 127.5) / 127.5
+
+
 def frames_to_tchw_normalized(frames: np.ndarray) -> np.ndarray:
-    """uint8 (T, H, W, 3) -> float32 (T, 3, H, W) in [-1, 1]: (x - 127.5) / 127.5."""
-    x = np.asarray(frames).astype(np.float32).transpose(0, 3, 1, 2)
+    """uint8 (T, H, W, 3) -> float32 (T, 3, H, W) in [-1, 1]: (x - 127.5) / 127.5
+    (uint8 frames through a 256-entry table, in one pass)."""
+    frames = np.asarray(frames)
+    if frames.dtype == np.uint8:
+        return _UNIT_LUT[np.ascontiguousarray(frames.transpose(0, 3, 1, 2))]
+    x = frames.astype(np.float32).transpose(0, 3, 1, 2)
     return np.ascontiguousarray((x - 127.5) / 127.5)
 
 
@@ -121,10 +129,20 @@ def resize_for_rectangle_crop(arr, image_size, reshape_mode: str = "center",
 
 
 def smpl_downsample(video_tchw):
-    """0.5x bilinear downsample of the pose render (host for numpy input)."""
+    """0.5x bilinear downsample of the pose render (host for numpy input).
+    At even sizes torch's 0.5x bilinear weighs each output by 0.5 on two
+    inputs a row and a column, so on the host it is the mean of each pair,
+    rows then columns: the same float32 values as the two weight-matrix
+    products, without their zero taps."""
     h, w = video_tchw.shape[-2:]
     if isinstance(video_tchw, np.ndarray):
-        return resize_bilinear_host(video_tchw, h // 2, w // 2)
+        if h % 2 or w % 2 or video_tchw.dtype != np.float32:
+            return resize_bilinear_host(video_tchw, h // 2, w // 2)
+        x = video_tchw[..., 0::2, :] + video_tchw[..., 1::2, :]
+        x *= np.float32(0.5)
+        y = x[..., 0::2] + x[..., 1::2]
+        y *= np.float32(0.5)
+        return y
     return resize_bilinear(video_tchw, h // 2, w // 2)
 
 
@@ -140,22 +158,27 @@ def save_multi_video_grid_and_mp4(video_batches, save_dir: str, fps: float, key:
     """Stack (B, T, 3, H, W) streams in [0, 1] side by side per frame and write
     one clip per batch element as `<save_dir>/<key>_<i:06d>.mp4` (MPEG-4 part 2
     through OpenCV).  Returns the paths written; raises if OpenCV cannot
-    encode MPEG-4."""
+    encode MPEG-4.  Frames are assembled and quantized one at a time, in
+    uint8 once clipped, so no (B, T, n, 3, H, W) float copy is made."""
     import cv2
 
     os.makedirs(save_dir, exist_ok=True)
-    stacked = np.stack([np.asarray(v) for v in video_batches], axis=2)  # b t n c h w
+    streams = [np.asarray(v) for v in video_batches]
+    b, t, c, h, w = streams[0].shape
+    if any(s.shape != streams[0].shape for s in streams):
+        raise ValueError(f"streams differ in shape: {[s.shape for s in streams]}")
     written = []
-    for i, vid in enumerate(stacked):
-        t, n, c, h, w = vid.shape
-        frames = np.clip(vid.transpose(0, 3, 1, 4, 2).reshape(t, h, n * w, c) * 255.0,
-                         0, 255).astype(np.uint8)
+    for i in range(b):
         path = os.path.join(save_dir, f"{key}_{i:06d}.mp4")
-        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), float(fps), (n * w, h))
+        writer = cv2.VideoWriter(path, cv2.VideoWriter_fourcc(*"mp4v"), float(fps),
+                                 (len(streams) * w, h))
         if not writer.isOpened():
             raise RuntimeError(f"OpenCV {cv2.__version__} cannot encode MPEG-4 to {path}")
-        for frame in frames:
-            writer.write(np.ascontiguousarray(frame[..., ::-1]))  # RGB -> BGR
+        for j in range(t):
+            rgb = np.concatenate([s[i, j].transpose(1, 2, 0) for s in streams], axis=1)
+            rgb *= 255.0
+            frame = np.clip(rgb, 0, 255, out=rgb).astype(np.uint8)
+            writer.write(cv2.cvtColor(frame, cv2.COLOR_RGB2BGR))
         writer.release()
         written.append(path)
     return written

@@ -1,9 +1,10 @@
-"""What the port's decoder LMs share: parameter containers named as the JAX
+"""What the port's zoo models share: parameter containers named as the JAX
 trees (a per-layer module for each index of the stacked (L, ...) leaves, so
-`convert/from_jax.py` `lm_state_dict_from_jax` bridges them), the explicit
-attention of the JAX forwards (f32 logits, the mask, softmax in f32, the
-probabilities cast to v's dtype), a preallocated KV cache, rotary helpers
-and the random init.
+`convert/from_jax.py` `lm_state_dict_from_jax` / `encoder_state_dict_from_jax`
+bridge them), the explicit attention of the JAX forwards (f32 logits, the
+mask, softmax in f32, the probabilities cast to v's dtype), a preallocated KV
+cache, rotary helpers and the random init; for the encoders, the patch
+embedding, the pre-LN ViT block and the released layouts' per-layer names.
 
 A model is built on its device, or on the meta device and then drawn one
 parameter at a time on the device by `init_weights_` (N(0, 0.02), norm
@@ -16,9 +17,11 @@ from __future__ import annotations
 from typing import Dict, Optional
 
 import torch
+import torch.nn.functional as F
 from torch import nn
 
 from scail_tpu_torch.models.common import container, linear, parameter, random_init_
+from scail_tpu_torch.ops.norms import layer_norm
 from scail_tpu_torch.ops.rotary import apply_rotary
 
 
@@ -155,3 +158,67 @@ def mask_bias(mask):
         return None
     zero = torch.zeros((), device=mask.device)
     return torch.where(mask[:, None] > 0, zero, -10000.0)
+
+
+# ---------------------------------------------------------------------------
+# the encoder zoo's shared pieces (vit, mae, yolos, cait, eva2, evaclip)
+# ---------------------------------------------------------------------------
+def patch_conv(c_in: int, d: int, p: int, device=None) -> nn.Module:
+    """{weight (d, c_in, p, p), bias (d,)}: the patch embedding, stride p
+    (the JAX tree's HWIO kernel, transposed by the bridge)."""
+    return container(weight=parameter(d, c_in, p, p, device=device),
+                     bias=parameter(d, fill=0.0, device=device))
+
+
+def patchify(conv, images, stride: int):
+    """(b, C, H, W) images -> (b, (H/p)(W/p), d) patch tokens in the
+    parameters' dtype: the convolution without its bias, row-major over the
+    grid, then the bias (as the JAX NHWC conv, reshape and add)."""
+    x = F.conv2d(images.to(conv.weight.dtype), conv.weight, stride=stride)
+    return x.flatten(2).transpose(1, 2) + conv.bias
+
+
+def dense(x, layer):
+    """x @ layerᵀ (+ bias) through a {weight (out, in)[, bias]} holder."""
+    return F.linear(x, layer.weight, getattr(layer, "bias", None))
+
+
+class ViTLayer(nn.Module):
+    """Pre-LN ViT block parameters: ln1, q, k, v, proj, ln2, fc1, fc2."""
+
+    def __init__(self, d: int, f: int, device=None):
+        super().__init__()
+        self.ln1, self.ln2 = norm(d, True, device), norm(d, True, device)
+        self.q, self.k, self.v = (lin(d, d, True, device) for _ in range(3))
+        self.proj = lin(d, d, True, device)
+        self.fc1, self.fc2 = lin(d, f, True, device), lin(f, d, True, device)
+
+
+def vit_block(x, p: ViTLayer, num_heads: int, eps: float):
+    """Pre-LN block: x + proj(attn(LN(x))), then x + fc2(gelu(fc1(LN(x))))
+    with the exact GELU (the JAX vit / mae / yolos block)."""
+    hd = x.shape[-1] // num_heads
+    y = layer_norm(x, p.ln1.scale, p.ln1.bias, eps=eps)
+    q, k, v = (dense(y, w).unflatten(-1, (num_heads, hd)) for w in (p.q, p.k, p.v))
+    x = x + dense(attend(q, k, v, scale=hd ** -0.5), p.proj)
+    y = layer_norm(x, p.ln2.scale, p.ln2.bias, eps=eps)
+    return x + dense(F.gelu(dense(y, p.fc1)), p.fc2)
+
+
+def hf_vit_layers(sd: Dict, L: int, fmt: str) -> Dict[str, torch.Tensor]:
+    """HF ViT-family layer names (ViT, ViTMAE, YOLOS) -> `ViTLayer` names."""
+    return sat_linears(sd, L, {
+        "ln1": "layernorm_before", "ln2": "layernorm_after", "q": "attention.attention.query",
+        "k": "attention.attention.key", "v": "attention.attention.value",
+        "proj": "attention.output.dense", "fc1": "intermediate.dense", "fc2": "output.dense"},
+        fmt, norms=("ln1", "ln2"))
+
+
+def sat_linears(sd: Dict, L: int, names: Dict[str, str], fmt: str,
+                norms=()) -> Dict[str, torch.Tensor]:
+    """Per-layer linears and LayerNorms of a released layout (SAT or HF):
+    {dst: src} with .weight / .bias each; a dst in `norms` takes its weight
+    as `scale`."""
+    return stacked(sd, L, {f"{dst}.{'scale' if dst in norms and leaf == 'weight' else leaf}":
+                           f"{src}.{leaf}" for dst, src in names.items()
+                           for leaf in ("weight", "bias")}, fmt)

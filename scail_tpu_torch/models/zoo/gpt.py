@@ -1,6 +1,7 @@
 """GPT-2-style decoder LM with a KV cache (counterpart of
 scail_tpu/models/zoo/gpt.py): learned positions, pre-LN blocks, a fused qkv,
-a GELU-tanh MLP, the LM head tied to the token table.  The full forward
+a GELU-tanh MLP, the LM head tied to the token table, optional bottleneck
+adapters (training/adapters.py).  The full forward
 serves training and prefill; with a cache each call appends its rows at the
 cache's length (incremental decode).  `generate` prefills once and then
 decodes one token a step.
@@ -18,6 +19,7 @@ from torch import nn
 from scail_tpu_torch.models.common import gelu_tanh
 from scail_tpu_torch.models.zoo.common import LM, KVCache, kv_attend, lin, norm, table
 from scail_tpu_torch.ops.norms import layer_norm
+from scail_tpu_torch.training.adapters import apply_adapter
 
 
 @dataclasses.dataclass(frozen=True)
@@ -57,9 +59,11 @@ class GPT(LM):
         return KVCache(cfg.num_layers, batch, cfg.max_len, cfg.num_heads, cfg.head_dim,
                        device=self.wte.device, dtype=self.wte.dtype)
 
-    def forward(self, tokens, cache: Optional[KVCache] = None, prefix=None):
+    def forward(self, tokens, cache: Optional[KVCache] = None, prefix=None, adapters=None):
         """tokens (b, s) -> (logits, cache); `prefix` an optional (L, 2, n,
-        P, hd) learned KV prefix, always visible."""
+        P, hd) learned KV prefix, always visible; `adapters` an optional
+        training/adapters.py `Adapters`, applied after each layer's attention
+        output and after its MLP output."""
         cfg = self.config
         b, s = tokens.shape
         n, hd = cfg.num_heads, cfg.head_dim
@@ -72,10 +76,16 @@ class GPT(LM):
                        F.linear(y, lp.qkv.weight, lp.qkv.bias).chunk(3, dim=-1))
             o = kv_attend(q, k, v, cache, li, positions, scale=hd ** -0.5,
                           prefix=None if prefix is None else (prefix[li, 0], prefix[li, 1]))
-            x = x + F.linear(o, lp.proj.weight, lp.proj.bias)
+            attn_out = F.linear(o, lp.proj.weight, lp.proj.bias)
+            if adapters is not None:
+                attn_out = apply_adapter(adapters.layers[li].attn, attn_out)
+            x = x + attn_out
             y = layer_norm(x, lp.ln2.scale, lp.ln2.bias, eps=cfg.eps)
-            x = x + F.linear(gelu_tanh(F.linear(y, lp.fc1.weight, lp.fc1.bias)), lp.fc2.weight,
-                             lp.fc2.bias)
+            mlp_out = F.linear(gelu_tanh(F.linear(y, lp.fc1.weight, lp.fc1.bias)), lp.fc2.weight,
+                               lp.fc2.bias)
+            if adapters is not None:
+                mlp_out = apply_adapter(adapters.layers[li].mlp, mlp_out)
+            x = x + mlp_out
         x = layer_norm(x, self.ln_f.scale, self.ln_f.bias, eps=cfg.eps)
         if cache is not None:
             cache.length += s

@@ -21,17 +21,23 @@ def init_prefix_params(generator: torch.Generator, num_layers: int, num_kv_heads
     return nn.Parameter(0.01 * t)
 
 
-def prefix_only_optimizer(make: Callable, named_params: Iterable[Tuple[str, torch.Tensor]]):
+def subtree_optimizer(key: str, make: Callable,
+                      named_params: Iterable[Tuple[str, torch.Tensor]]):
     """`make(params)` (e.g. `lambda p: torch.optim.SGD(p, lr=0.1)`) over the
-    parameters with a `prefix` name component alone; every other one is
-    frozen (requires_grad off), as JAX's multi_transform with set_to_zero
-    freezes the base tree."""
+    parameters with a `key` name component alone; every other one is frozen
+    (requires_grad off), as JAX's multi_transform with set_to_zero freezes
+    the rest of the tree."""
     train = []
     for name, p in named_params:
-        is_prefix = "prefix" in name.split(".")
-        p.requires_grad_(is_prefix)
-        if is_prefix:
+        mine = key in name.split(".")
+        p.requires_grad_(mine)
+        if mine:
             train.append(p)
     if not train:
-        raise ValueError("no parameter has a 'prefix' name component")
+        raise ValueError(f"no parameter has a {key!r} name component")
     return make(train)
+
+
+def prefix_only_optimizer(make: Callable, named_params: Iterable[Tuple[str, torch.Tensor]]):
+    """The optimizer over the `prefix` parameters alone."""
+    return subtree_optimizer("prefix", make, named_params)

@@ -426,7 +426,11 @@ def test_port_never_imports_jax():
         "'training.prefix_tuning', 'models.zoo.common', 'models.zoo.llama', "
         "'models.zoo.mixtral', 'models.zoo.gpt', 'models.zoo.gptneo', 'models.zoo.glm', "
         "'models.zoo.chatglm', 'models.zoo.chatglm23', 'models.zoo.glm130b', "
-        "'models.zoo.glmblock', 'models.zoo.cuda2d'):\n"
+        "'models.zoo.glmblock', 'models.zoo.cuda2d', 'models.zoo.bert', 'models.zoo.dpr', "
+        "'models.zoo.t5', 'models.zoo.vit', 'models.zoo.cait', 'models.zoo.eva2', "
+        "'models.zoo.evaclip', 'models.zoo.glm4v', 'models.zoo.mae', 'models.zoo.yolos', "
+        "'training.adapters', 'training.distill', 'tokenization', 'tokenization.core', "
+        "'tokenization.text', 'tokenization.glm', 'tokenization.image'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -461,7 +465,13 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                 "training/prefix_tuning.py", "models/zoo/common.py", "models/zoo/llama.py",
                 "models/zoo/mixtral.py", "models/zoo/gpt.py", "models/zoo/gptneo.py",
                 "models/zoo/glm.py", "models/zoo/chatglm.py", "models/zoo/chatglm23.py",
-                "models/zoo/glm130b.py", "models/zoo/glmblock.py", "models/zoo/cuda2d.py"):
+                "models/zoo/glm130b.py", "models/zoo/glmblock.py", "models/zoo/cuda2d.py",
+                "models/zoo/bert.py", "models/zoo/dpr.py", "models/zoo/t5.py", "models/zoo/vit.py",
+                "models/zoo/cait.py", "models/zoo/eva2.py", "models/zoo/evaclip.py",
+                "models/zoo/glm4v.py", "models/zoo/mae.py", "models/zoo/yolos.py",
+                "training/adapters.py", "training/distill.py", "tokenization/__init__.py",
+                "tokenization/core.py", "tokenization/text.py", "tokenization/glm.py",
+                "tokenization/image.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}
