@@ -245,6 +245,26 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  GPT-2 with adapters: one adapters-only AdamW step leaves every
                  base tensor bit-equal and moves every adapter tensor.  No TPU
                  kernel lies on this phase; its line is {"encoders": ...}.
+  16. data   -- the data layer: (a) two local tar shards in the webdataset
+                 layout from the 81-frame fixture (driving.mp4, rendered.mp4,
+                 ref.jpg and txt members; keys 000 and 001), a .meta.jsonl
+                 sidecar with a caption for key 000 and a malformed line, a
+                 brace pattern over both; (b) the shards read through the
+                 native tar index (the port's g++ library in
+                 build/scail_tpu_torch/, checked in /proc/self/maps) and one
+                 through a `pipe:cat` gopen stream: the same keys and bytes;
+                 MetaTarShardDataset with VideoPoseSample decodes a sample, its
+                 collated batch bit-equal to the VideoPoseDataset item of the
+                 example (the caption aside); (c) Trainer.fit through the
+                 train CLI on the 1.3B YAML at full width and CUT_LAYERS
+                 layers, --batch-size 1, its batches from the shard stream and
+                 its evaluations from the valid loader of make_loaders
+                 (--valid-data-root): exit_interval 2, eval_interval 1,
+                 eval_iters 1, 2 finite steps and 2 finite evaluations with
+                 exactly 2 x _train_launches + 2 x _eval_launches, the "data
+                 loader" timer a step beside phase 13 (a)'s; (d) one
+                 calibration_probe reading (16 chained 8192^2 bf16 products)
+                 on a log line.  Its line is {"data": ...}.
 
 Every DiT forward also runs the fused AdaLN LayerNorm (K9) 2L+1 times (before
 each layer's attention and MLP, and in the final layer) and the rotary
@@ -258,8 +278,9 @@ train CLI of phases 6, 6b, 6c (one path per policy) and 6d, the 14B paths of
 phases 7, 7b and 8, the --load request of phase 9, the two ranks of phase
 10 (their runs summed), the two sampling passes of validate_weights in
 phase 11, phase 12's DiT under DPMPP2MSampler and its PD step, phase
-13's Trainer.fit with its evaluations and its 4-layer hook run, and phase
-14's MoE DiT forward (`dit_moe`), each counted from 0, and their sum), its largest
+13's Trainer.fit with its evaluations and its 4-layer hook run, phase
+14's MoE DiT forward (`dit_moe`) and phase 16's Trainer.fit from the shards
+(`trainer_fit_shards`), each counted from 0, and their sum), its largest
 error against the plain version, the kernel's, the plain version's and the
 library call's milliseconds at the main-path shape, and the bound: the
 larger of bytes moved over 3.35 TB/s and
@@ -5547,6 +5568,266 @@ def phase_encoders():
     return stats
 
 
+# --------------------------------------------------------------------------
+# Phase 16: the data layer -- tar shards on the native index, sidecar
+# metadata, a validation loader -- feeding Trainer.fit at full width
+# --------------------------------------------------------------------------
+DATA_SIZE = (512, 896)
+DATA_FRAMES = 81
+DATA_TXT = "a character dancing"
+DATA_CAPTION = "a character dancing in a bright studio"
+DATA_FIT_LAUNCHES = {k: 2 * v + 2 * _eval_launches(CUT_LAYERS).get(k, 0)
+                     for k, v in _train_launches(CUT_LAYERS).items()}
+
+
+def _data_write(ex81, work):
+    """(a) An example dir with the 81-frame fixture's clips under the
+    webdataset member names (driving.mp4 = its GT.mp4, rendered.mp4) and
+    its reference as a JPEG; two shards of it, keys 000 and 001, each sample
+    driving.mp4, rendered.mp4, ref.jpg and txt; a sidecar for the first
+    shard with a caption for key 000 and a malformed line.  Returns the
+    examples' root and the brace pattern of the shards."""
+    import io
+    import shutil
+    import tarfile
+
+    from PIL import Image
+
+    ex = os.path.join(work, "examples", "000")
+    os.makedirs(ex, exist_ok=True)
+    shutil.copyfile(os.path.join(ex81, "GT.mp4"), os.path.join(ex, "driving.mp4"))
+    shutil.copyfile(os.path.join(ex81, "rendered.mp4"), os.path.join(ex, "rendered.mp4"))
+    Image.open(os.path.join(ex81, "ref.png")).convert("RGB").save(
+        os.path.join(ex, "ref.jpg"), quality=95)
+    members = {}
+    for name in ("driving.mp4", "rendered.mp4", "ref.jpg"):
+        with open(os.path.join(ex, name), "rb") as f:
+            members[name] = f.read()
+    members["txt"] = DATA_TXT.encode()
+    shards = os.path.join(work, "shards")
+    os.makedirs(shards, exist_ok=True)
+    for i in range(2):
+        with tarfile.open(os.path.join(shards, f"clips-{i:03d}.tar"), "w") as tf:
+            for name, payload in members.items():
+                info = tarfile.TarInfo(f"{i:03d}.{name}")
+                info.size = len(payload)
+                tf.addfile(info, io.BytesIO(payload))
+    with open(os.path.join(shards, "clips-000.meta.jsonl"), "w") as f:
+        f.write(json.dumps({"key": "000", "caption": DATA_CAPTION}) + "\n")
+        f.write("{not json\n")
+    mb = sum(len(v) for v in members.values()) / 1e6
+    log(f"data (a): wrote 2 shards of one 81-frame {DATA_SIZE[0]}x{DATA_SIZE[1]} sample "
+        f"({mb:.2f} MB each) and a sidecar -> {os.path.relpath(shards, ROOT)}")
+    return os.path.dirname(ex), os.path.join(shards, "clips-{000..001}.tar")
+
+
+def _native_tario_loaded():
+    """The tar index library mapped into this process: the port's g++ build
+    in build/scail_tpu_torch/, and no JAX package library."""
+    from scail_tpu_torch.native import tario
+
+    path = tario.BUILD_INFO.get("path", "")
+    maps = open("/proc/self/maps").read()
+    mapped = sorted({ln.split()[-1] for ln in maps.splitlines() if "tario" in ln})
+    want_dir = os.path.join(ROOT, "build", "scail_tpu_torch") + os.sep
+    if not path.startswith(want_dir) or mapped != [path]:
+        fail(f"data (b): the tar index library is not the port's build in {want_dir}: "
+             f"built {path!r}, mapped {mapped}")
+    return path
+
+
+def _data_read(root, pattern, stats):
+    """(b) The shards through MetaTarShardDataset on the native index; one
+    shard also through a `pipe:cat` gopen stream: the same keys and member
+    bytes; a collated batch bit-equal to the VideoPoseDataset item of the
+    example, apart from the injected caption."""
+    import numpy as np
+
+    from scail_tpu_torch.data.datasets import (MetaTarShardDataset, TarShardDataset,
+                                               VideoPoseDataset, VideoPoseSample,
+                                               default_collate, expand_shard_paths)
+
+    shards = expand_shard_paths(pattern)
+    if [os.path.basename(s) for s in shards] != ["clips-000.tar", "clips-001.tar"]:
+        fail(f"data (b): {pattern} expanded to {shards}")
+    t0 = time.perf_counter()
+    local = next(iter(TarShardDataset(shards[:1], shuffle_shards=False)))
+    lib = _native_tario_loaded()
+    stream = next(iter(TarShardDataset([f"pipe:cat {shards[0]}"], shuffle_shards=False)))
+    same = (set(local) == set(stream) and local["__key__"] == stream["__key__"] == "000"
+            and all(bytes(local[k]) == stream[k] for k in local if k != "__key__"))
+    log(f"data (b): native index {os.path.relpath(lib, ROOT)}; local and pipe: samples of "
+        f"{shards[0]!r}: keys {sorted(local)}, the same bytes {same}")
+    if not same:
+        fail("data (b): the local and the streamed shard give different samples")
+    # the second shard has no sidecar: its raw sample keeps its txt alone
+    raw = next(iter(MetaTarShardDataset(shards[1:], meta_names=["caption"],
+                                        shuffle_shards=False)))
+    it = iter(MetaTarShardDataset(shards, VideoPoseSample(DATA_SIZE, DATA_FRAMES),
+                                  meta_names=["caption"], shuffle_shards=False))
+    items = [next(it)]
+    it.close()
+    read_s = time.perf_counter() - t0
+    texts = [items[0]["txt"], "caption" in raw, bytes(raw["txt"]).decode()]
+    want = VideoPoseDataset(root, DATA_SIZE, DATA_FRAMES)[0]
+    batch = default_collate(items)
+    equal = {k: bool(np.array_equal(batch[k][0], want[k]) and batch[k].dtype == want[k].dtype)
+             for k in ("mp4", "pose", "ref_frame", "first_frame")}
+    log(f"data (b): read and decoded in {read_s:.2f} s (mp4 {batch['mp4'].shape}, first_frame "
+        f"{batch['first_frame'].shape}); key 000's text, key 001 captioned, its txt: {texts}; "
+        "the collated batch bit-equal to the "
+        f"VideoPoseDataset item: {equal}")
+    if not all(equal.values()) or texts != [DATA_CAPTION, False, DATA_TXT]:
+        fail(f"data (b): shard batch differs from the VideoPoseDataset item ({equal}) or "
+             f"wrong texts {texts}")
+    stats["read"] = {"library": os.path.relpath(lib, ROOT), "local_equals_stream": same,
+                     "seconds": read_s, "bit_equal": equal, "texts": texts}
+    return shards
+
+
+class _ShardBatches:
+    """The train CLI's training loader replaced by the shard stream:
+    batch_size samples of a MetaTarShardDataset collated per batch."""
+
+    def __init__(self, ds, batch_size):
+        self.ds, self.batch_size, self.batches = ds, batch_size, 0
+
+    def __iter__(self):
+        from scail_tpu_torch.data.datasets import default_collate
+
+        it = iter(self.ds)
+        while True:
+            items = [next(it) for _ in range(self.batch_size)]
+            self.batches += 1
+            yield default_collate(items)
+
+
+class _CountedLoader:
+    def __init__(self, loader):
+        self.loader, self.batches = loader, 0
+
+    def __iter__(self):
+        for b in self.loader:
+            self.batches += 1
+            yield b
+
+
+def _data_fit(root, shards, trainers, stats):
+    """(c) Trainer.fit through the train CLI on the 1.3B YAML at full width
+    and CUT_LAYERS layers, --batch-size 1: its batches from the shard
+    stream, its evaluations from the valid loader of make_loaders
+    (valid_ds = the example's VideoPoseDataset, --valid-data-root);
+    exit_interval 2, eval_interval 1, eval_iters 1: 2 finite steps, 2 finite
+    evaluations, exact launches, the "data loader" timer a step."""
+    import dataclasses
+    import math
+
+    import torch
+
+    import scail_tpu_torch.data.datasets as dsmod
+    from scail_tpu_torch.cli import train
+    from scail_tpu_torch.training.engine import Trainer
+
+    real_fit, real_loaders = Trainer.fit, dsmod.make_loaders
+    seen = {}
+
+    def make_loaders(train_ds, batch_size, **kw):
+        _, valid = real_loaders(train_ds, batch_size, **kw)
+        if valid is None:
+            fail("data (c): the train CLI built no valid loader")
+        seen["train"] = _ShardBatches(dsmod.MetaTarShardDataset(
+            shards, dsmod.VideoPoseSample(DATA_SIZE, DATA_FRAMES), meta_names=["caption"],
+            shuffle_shards=False), batch_size)
+        seen["valid"] = _CountedLoader(valid)
+        return seen["train"], seen["valid"]
+
+    def fit(self, data_iter, eval_data_iter=None, eval_loss_fn=None):
+        self.config = dataclasses.replace(self.config, exit_interval=2, eval_interval=1,
+                                          eval_iters=1)
+        seen["has_eval_iter"] = eval_data_iter is not None and eval_loss_fn is not None
+        return real_fit(self, data_iter, eval_data_iter, eval_loss_fn)
+
+    evals = []
+    real_eval = Trainer.evaluate
+
+    def evaluate(self, data_iter, loss_fn):
+        v = real_eval(self, data_iter, loss_fn)
+        evals.append(v)
+        return v
+
+    Trainer.fit, Trainer.evaluate, dsmod.make_loaders = fit, evaluate, make_loaders
+    try:
+        argv = _train_argv(_cut_yaml(CUT_LAYERS), root) + ["--train-iters", "4",
+                                                            "--valid-data-root", root]
+        reset_counts()
+        t0 = time.perf_counter()
+        trainer = train.main(argv)
+        torch.cuda.synchronize()
+        total = time.perf_counter() - t0
+        counts = launch_counts()
+    finally:
+        Trainer.fit, Trainer.evaluate, dsmod.make_loaders = real_fit, real_eval, real_loaders
+    steps = len(trainer.history)
+    losses = [m["loss"] for m in trainer.history]
+    timer_ms = {n: trainer.timers(n).elapsed(reset=False) * 1e3 / max(steps, 1)
+                for n in ("data loader", "train_step")}
+    fit13 = trainers.get("dit_fit", {}).get("timer_ms_per_step", {})
+    log(f"data (c): Trainer.fit at {CUT_LAYERS} layers from the shards: stopped at step "
+        f"{trainer.step} of 4, losses {losses}, evaluation losses {evals}; shard batches "
+        f"{seen['train'].batches}, valid-loader batches {seen['valid'].batches}; timers per "
+        f"step: data loader {timer_ms['data loader']:.1f} ms, train_step "
+        f"{timer_ms['train_step']:.1f} ms (phase 13 (a), a prefetching DataLoader over the "
+        f"example dir: data loader {fit13.get('data loader', float('nan')):.1f} ms, train_step "
+        f"{fit13.get('train_step', float('nan')):.1f} ms); launches {counts}; {total:.1f} s "
+        "with the engine build")
+    if not seen.get("has_eval_iter"):
+        fail("data (c): Trainer.fit got no evaluation iterator from the train CLI")
+    if trainer.step != 2 or steps != 2 or not all(m["ok"] for m in trainer.history) or \
+            not all(math.isfinite(x) for x in losses):
+        fail(f"data (c): fit did not take 2 finite steps and exit: {trainer.history}")
+    if len(evals) != 2 or not all(math.isfinite(x) for x in evals) or seen["valid"].batches < 2:
+        fail(f"data (c): expected 2 finite evaluations from the valid loader, got {evals} "
+             f"({seen['valid'].batches} valid batches)")
+    if seen["train"].batches != 2:
+        fail(f"data (c): expected 2 shard batches, drew {seen['train'].batches}")
+    _exact(counts, DATA_FIT_LAUNCHES, "data (c), 2 steps and 2 evaluations from shards")
+    stats["fit"] = {"losses": losses, "eval_losses": evals, "timer_ms_per_step": timer_ms,
+                    "phase13_timer_ms_per_step": fit13, "seconds": total,
+                    "valid_batches": seen["valid"].batches}
+    del trainer
+    _free_card()
+    return counts
+
+
+def phase_data(ex81, trainers):
+    """Phase 16: the data layer on the card.  Returns the launches of (c)'s
+    Trainer.fit and the phase's record."""
+    from scail_tpu_torch.utils.benchmarking import PEAK_TFLOPS, calibration_probe
+
+    t_phase = time.perf_counter()
+    work = os.path.join(WORK, "data")
+    stats = {"seconds": {}}
+    t0 = time.perf_counter()
+    root, pattern = _data_write(ex81, work)
+    t1 = time.perf_counter()
+    shards = _data_read(root, pattern, stats)
+    t2 = time.perf_counter()
+    counts = _data_fit(root, shards, trainers, stats)
+    t3 = time.perf_counter()
+    probe = calibration_probe()
+    stats["seconds"].update(write=t1 - t0, read=t2 - t1, fit=t3 - t2,
+                            probe=time.perf_counter() - t3)
+    log(f"data (d): calibration_probe (16 chained 8192^2 bf16 products): "
+        f"{probe['probe_matmul_tflops']} TFLOP/s, {probe['probe_frac_of_peak']:.4f} of "
+        f"{PEAK_TFLOPS:.0f}")
+    stats["probe"] = probe
+    stats["phase_s"] = time.perf_counter() - t_phase
+    log(f"phase 16 (data): {stats['phase_s']:.1f} s (" + ", ".join(
+        f"{k} {v:.1f} s" for k, v in stats["seconds"].items()) + ")")
+    print(json.dumps({"data": stats}), flush=True)
+    return counts, stats
+
+
 # seconds of each phase of this run, in order
 PHASE_S = {}
 
@@ -5588,6 +5869,7 @@ def main():
     fit_counts, hook_counts, trainers = _phase("trainers", phase_trainers, ex81)
     moe_counts, zoo = _phase("zoo", phase_zoo)
     encoders = _phase("encoders", phase_encoders)
+    shard_fit_counts, data = _phase("data", phase_data, ex81, trainers)
     _no_jax_loaded("the whole run")
 
     import torch
@@ -5621,7 +5903,10 @@ def main():
         f"Llama-2-7B {zoo['llama']['bfloat16']['greedy_cached']['ms_per_token']:.1f} ms a "
         f"token); encoders phase {encoders['phase_s']:.1f} s (GLM-4V-9B forward "
         f"{encoders['glm4v_9b']['forward_ms']:.1f} ms, T5 XL greedy "
-        f"{encoders['t5_xl']['greedy_ms_per_token']:.1f} ms a token); phases (s) "
+        f"{encoders['t5_xl']['greedy_ms_per_token']:.1f} ms a token); data phase "
+        f"{data['phase_s']:.1f} s (data loader "
+        f"{data['fit']['timer_ms_per_step']['data loader']:.1f} ms a step from the shards, "
+        f"probe {data['probe']['probe_matmul_tflops']} TFLOP/s); phases (s) "
         + ", ".join(f"{k} {v:.1f}" for k, v in PHASE_S.items())
         + f"; whole run {time.perf_counter() - t_start:.0f} s; card {card}")
     print(json.dumps({"phase_seconds": PHASE_S}), flush=True)
@@ -5633,7 +5918,8 @@ def main():
              **remat_counts, "train_cli_lora": lora_counts, "parallel_2ranks": parallel_counts,
              "validate_weights": eval_counts, "dit_zoo_dpmpp2m": zoo_counts,
              "pd_step": pd_counts, "trainer_fit_evals": fit_counts,
-             "trainer_hooks_4layers": hook_counts, "dit_moe": moe_counts}
+             "trainer_hooks_4layers": hook_counts, "dit_moe": moe_counts,
+             "trainer_fit_shards": shard_fit_counts}
 
     def entry(name, source, replaces):
         by_path = {path: counts[name] for path, counts in paths.items()}

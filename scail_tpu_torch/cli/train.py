@@ -2,8 +2,10 @@
 
 Builds the engine from the same YAML graphs as sampling, a VideoPoseDataset
 over a directory of example dirs, and runs the Trainer with the RFLoss
-raw-pixel shared_step.  The DiT trains in f32 parameters with bf16 compute;
-the VAE, CLIP and text encoders are frozen.  `--load <dir>` starts the DiT
+raw-pixel shared_step; `--valid-data-root` adds a validation set, whose
+in-order loader Trainer.fit evaluates with the same loss every
+`eval_interval` steps (TrainConfig).  The DiT trains in f32 parameters with
+bf16 compute; the VAE, CLIP and text encoders are frozen.  `--load <dir>` starts the DiT
 from a SAT checkpoint directory (<dir>/<latest>/mp_rank_00_model_states.pt,
 read in f32); the VAE and encoders then come from the YAML's file paths.
 `--lora-rank r` fine-tunes LoRA factors of rank r on the DiT's layer linears
@@ -42,6 +44,8 @@ def build_argparser():
     p = argparse.ArgumentParser("scail_tpu_torch.train")
     p.add_argument("--base", nargs="*", default=[])
     p.add_argument("--data-root", required=True)
+    p.add_argument("--valid-data-root", default=None,
+                   help="a directory of validation example dirs, evaluated during training")
     p.add_argument("--save", default=None)
     p.add_argument("--load", default=None)
     p.add_argument("--resume", action="store_true")
@@ -139,10 +143,20 @@ def main(argv=None):
     if per_rank < args.batch_size * accum:
         raise SystemExit(f"dataset too small: {per_rank} examples per data rank < batch_size x "
                          f"grad_accum = {args.batch_size}x{accum}; no batch could be drawn")
-    train_loader = make_loaders(ds, args.batch_size * accum, seed=args.seed,
-                                start_iter=trainer.step, rank=d_rank, world_size=d_size)
+    valid_ds = None
+    if args.valid_data_root:
+        valid_ds = VideoPoseDataset(args.valid_data_root, image_size=tuple(args.image_size),
+                                    num_frames=args.num_frames)
+        print(f"validation: {len(valid_ds)} examples from {args.valid_data_root}", flush=True)
+        if len(valid_ds) // d_size < args.batch_size * accum:
+            raise SystemExit(f"validation set too small: {len(valid_ds)} examples for "
+                             f"{d_size} data ranks of batch_size x grad_accum = "
+                             f"{args.batch_size}x{accum}")
+    train_loader, valid_loader = make_loaders(ds, args.batch_size * accum, valid_ds=valid_ds,
+                                              seed=args.seed, start_iter=trainer.step,
+                                              rank=d_rank, world_size=d_size)
 
-    def to_device(batch):
+    def to_device(batch, accum=accum):
         out = {}
         if engine.conditioner is not None and "txt" in batch:
             with torch.no_grad():
@@ -156,7 +170,10 @@ def main(argv=None):
                    for k, v in out.items()}
         return out
 
-    trainer.history = trainer.fit(map(to_device, iter(train_loader)))
+    # a validation batch holds batch_size x grad_accum examples in one loss
+    valid_iter = None if valid_loader is None else (
+        to_device(b, accum=1) for b in valid_loader)
+    trainer.history = trainer.fit(map(to_device, iter(train_loader)), valid_iter, loss_fn)
     return trainer
 
 

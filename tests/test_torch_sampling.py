@@ -430,7 +430,9 @@ def test_port_never_imports_jax():
         "'models.zoo.t5', 'models.zoo.vit', 'models.zoo.cait', 'models.zoo.eva2', "
         "'models.zoo.evaclip', 'models.zoo.glm4v', 'models.zoo.mae', 'models.zoo.yolos', "
         "'training.adapters', 'training.distill', 'tokenization', 'tokenization.core', "
-        "'tokenization.text', 'tokenization.glm', 'tokenization.image'):\n"
+        "'tokenization.text', 'tokenization.glm', 'tokenization.image', 'data.datasets', "
+        "'data.gopen', 'data.demo', 'data.hf_dataset', 'native', 'native.tario', "
+        "'utils.download', 'utils.benchmarking'):\n"
         "    assert 'scail_tpu_torch.' + m in names, names\n"
         f"bad = [m for m in sys.modules if {_FOREIGN}]\n"
         "assert not bad, bad[:5]\n"
@@ -471,7 +473,9 @@ def test_port_sources_never_import_jax_or_the_jax_package():
                 "models/zoo/glm4v.py", "models/zoo/mae.py", "models/zoo/yolos.py",
                 "training/adapters.py", "training/distill.py", "tokenization/__init__.py",
                 "tokenization/core.py", "tokenization/text.py", "tokenization/glm.py",
-                "tokenization/image.py"):
+                "tokenization/image.py", "data/datasets.py", "data/gopen.py", "data/demo.py",
+                "data/hf_dataset.py", "native/__init__.py", "native/tario.py",
+                "utils/download.py", "utils/benchmarking.py"):
         assert os.path.join(ROOT, "scail_tpu_torch", new) in files, new
     bad = {os.path.relpath(f, ROOT): m.group(0).strip() for f in files
            for m in [pattern.search(open(f).read())] if m}
