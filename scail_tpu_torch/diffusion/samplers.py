@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from scail_tpu_torch.diffusion.guiders import IdentityGuider
+from scail_tpu_torch.utils import profiling
 from scail_tpu_torch.utils.misc import default
 from scail_tpu_torch.utils.registry import instantiate_from_config, register
 
@@ -101,16 +102,17 @@ class RFSampler(BaseDiffusionSampler):
     def step(self, denoise_fn, x, sigma: float, next_sigma: float, merged_cond: Dict,
              cfg_scale, **kw):
         """One Euler step x -> x + (next_sigma - sigma) * v (f32)."""
-        s_in = torch.full((x.shape[0],), sigma, dtype=torch.float32, device=x.device)
-        if self.distill:
-            v = denoise_fn(x, s_in, merged_cond, cfg_scale=cfg_scale, **kw).float()
-        else:
-            v = denoise_fn(torch.cat([x, x]), torch.cat([s_in, s_in]), merged_cond,
-                           cfg_scale=cfg_scale, **kw)
-            v = self.guider(v.float(), sigma, scale=cfg_scale)
-        # the step size is an f32 difference, as in the JAX sampler
-        dt = float(np.float32(next_sigma) - np.float32(sigma))
-        return x + dt * v
+        with profiling.annotate("sampler.step"):
+            s_in = torch.full((x.shape[0],), sigma, dtype=torch.float32, device=x.device)
+            if self.distill:
+                v = denoise_fn(x, s_in, merged_cond, cfg_scale=cfg_scale, **kw).float()
+            else:
+                v = denoise_fn(torch.cat([x, x]), torch.cat([s_in, s_in]), merged_cond,
+                               cfg_scale=cfg_scale, **kw)
+                v = self.guider(v.float(), sigma, scale=cfg_scale)
+            # the step size is an f32 difference, as in the JAX sampler
+            dt = float(np.float32(next_sigma) - np.float32(sigma))
+            return x + dt * v
 
     def __call__(self, denoise_fn, x, cond: Dict, uc: Optional[Dict] = None, num_steps=None,
                  scale=None, **kw):
@@ -120,6 +122,7 @@ class RFSampler(BaseDiffusionSampler):
         merged = dict(cond) if self.distill else self.guider.prepare_cond(cond, uc)
         x = x.float()
         for i in range(len(sigmas) - 1):
+            profiling.mark_step(i)
             x = self.step(denoise_fn, x, float(sigmas[i]), float(sigmas[i + 1]), merged,
                           cfg_scale, **kw)
             self._log_step(i, len(sigmas) - 1)
@@ -142,6 +145,7 @@ class RFSamplerLong(RFSampler):
         cfg_scale = default(scale, self.guider.scale)
         x = x.float()
         for i in range(len(sigmas) - 1):
+            profiling.mark_step(i)
             x = self.long_step(denoise_fn, x, (float(sigmas[i]), float(sigmas[i + 1])),
                                tile_indices, cond, uc, cfg_scale=cfg_scale, **kw)
             self._log_step(i, len(sigmas) - 1)

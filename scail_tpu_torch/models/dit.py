@@ -78,6 +78,7 @@ from scail_tpu_torch.parallel import comm
 from scail_tpu_torch.parallel.mesh import MODEL_AXIS, SEQ_AXIS
 from scail_tpu_torch.parallel.ring import check_ring_rows, ring_attention
 from scail_tpu_torch.parallel.ulysses import ulysses_attention
+from scail_tpu_torch.utils import profiling
 from scail_tpu_torch.utils.registry import register
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
@@ -370,6 +371,15 @@ class DiT(nn.Module):
         (b, S_txt, text_dim); returns the velocity (b, T, 16, H, W).  Under a
         non-trivial `mesh` the inputs are this data rank's, replicated over
         its seq and model ranks, and so is the result."""
+        with profiling.annotate("dit.forward"):
+            return self._forward(x, timesteps, context, ref_concat=ref_concat,
+                                 concat_smpl_render=concat_smpl_render,
+                                 image_clip_features=image_clip_features,
+                                 history_mask=history_mask, cfg_scale=cfg_scale,
+                                 h_shift=h_shift, w_shift=w_shift, mesh=mesh)
+
+    def _forward(self, x, timesteps, context, *, ref_concat, concat_smpl_render,
+                 image_clip_features, history_mask, cfg_scale, h_shift, w_shift, mesh):
         cfg = self.config
         if mesh is not None and mesh.trivial:
             mesh = None
@@ -558,65 +568,68 @@ class DiT(nn.Module):
         # self attention: q roped inside the flash kernel and k by the rotary
         # kernel; or both roped before STA, int8 and sequence-parallel
         # attention (JAX ropes in XLA when the rope is not fused)
-        ai = adaln_layer_norm(hidden, s_msa, sc_msa, eps=eps, round_ln=True, impl=impl)
-        q, k, v = col(blk.qkv, ai).chunk(3, dim=-1)
-        if cfg.qk_ln:
-            q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
-        sta_layout = isinstance(attn_pos, _StaLayout)
-        if sta_layout:
-            def sta(a, b_, c):
-                return sta_attention(a, b_, c, pre_tiled=True, impl=impl, **attn_pos.kwargs)
+        with profiling.annotate("dit.self_attn") as span:
+            ai = adaln_layer_norm(hidden, s_msa, sc_msa, eps=eps, round_ln=True, impl=impl)
+            q, k, v = col(blk.qkv, ai).chunk(3, dim=-1)
+            if cfg.qk_ln:
+                q, k = qk_norm(q, blk.q_norm), qk_norm(k, blk.k_norm)
+            sta_layout = isinstance(attn_pos, _StaLayout)
+            if sta_layout:
+                def sta(a, b_, c):
+                    return sta_attention(a, b_, c, pre_tiled=True, impl=impl, **attn_pos.kwargs)
 
-            if mesh is not None and mesh.size(SEQ_AXIS) > 1:
-                attn = ulysses_attention(rope(q), rope(k), heads(v), mesh, attn_fn=sta)
+                if mesh is not None and mesh.size(SEQ_AXIS) > 1:
+                    attn = ulysses_attention(rope(q), rope(k), heads(v), mesh, attn_fn=sta)
+                else:
+                    attn = sta(rope(q), rope(k), heads(v))
+            elif cfg.attn_impl == "pallas_int8" and mesh is None:
+                attn = attention_int8(rope(q), rope(k), heads(v), impl=impl)
+            elif cfg.attn_impl == "ulysses" and mesh is not None:
+                attn = ulysses_attention(rope(q), rope(k), heads(v), mesh, impl=impl)
+            elif cfg.attn_impl == "ring" and mesh is not None:
+                attn = ring_attention(rope(q), rope(k), heads(v), mesh, impl=impl)
+            elif mesh is not None:
+                # the rank's q rows against k and v gathered over 'seq' (each rank
+                # uses the whole k and v, so their gradients reduce-scatter back)
+                kf, vf = (comm.gather(t, mesh, SEQ_AXIS, 1, replicated=False)
+                          for t in (rope(k), heads(v)))
+                if cfg.attn_impl == "pallas_int8":
+                    attn = attention_int8(rope(q), kf, vf, impl=impl)
+                else:
+                    attn = attention(rope(q), kf, vf, impl=impl)
+            elif cfg.attn_impl in SEQ_PARALLEL_ATTN:
+                attn = attention(rope(q), rope(k), heads(v), impl=impl)
             else:
-                attn = sta(rope(q), rope(k), heads(v))
-        elif cfg.attn_impl == "pallas_int8" and mesh is None:
-            attn = attention_int8(rope(q), rope(k), heads(v), impl=impl)
-        elif cfg.attn_impl == "ulysses" and mesh is not None:
-            attn = ulysses_attention(rope(q), rope(k), heads(v), mesh, impl=impl)
-        elif cfg.attn_impl == "ring" and mesh is not None:
-            attn = ring_attention(rope(q), rope(k), heads(v), mesh, impl=impl)
-        elif mesh is not None:
-            # the rank's q rows against k and v gathered over 'seq' (each rank
-            # uses the whole k and v, so their gradients reduce-scatter back)
-            kf, vf = (comm.gather(t, mesh, SEQ_AXIS, 1, replicated=False)
-                      for t in (rope(k), heads(v)))
-            if cfg.attn_impl == "pallas_int8":
-                attn = attention_int8(rope(q), kf, vf, impl=impl)
-            else:
-                attn = attention(rope(q), kf, vf, impl=impl)
-        elif cfg.attn_impl in SEQ_PARALLEL_ATTN:
-            attn = attention(rope(q), rope(k), heads(v), impl=impl)
-        else:
-            attn = attention(heads(q), heads(k), heads(v), impl=impl,
-                             rope=(attn_pos.cos, attn_pos.sin),
-                             rope_interleaved=cfg.interleaved_rope)
-        hidden = hidden + g_msa * row(blk.attn_out, attn.flatten(2))
+                attn = attention(heads(q), heads(k), heads(v), impl=impl,
+                                 rope=(attn_pos.cos, attn_pos.sin),
+                                 rope_interleaved=cfg.interleaved_rope)
+            hidden = hidden + g_msa * row(blk.attn_out, attn.flatten(2))
 
         # dual cross attention, no AdaLN modulation or gate; context and the
         # CLIP tokens passed copy_to once, before the layers
-        cq = col(blk.cross_q, layer_norm(hidden, eps=eps))
-        ck, cv = lin(blk.cross_kv, context).chunk(2, dim=-1)
-        if cfg.qk_ln:
-            cq, ck = qk_norm(cq, blk.cross_q_norm), qk_norm(ck, blk.cross_k_norm)
-        if cfg.use_i2v_clip:
-            pk, pv = lin(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
+        with profiling.annotate("dit.cross_attn", follows=span) as span:
+            cq = col(blk.cross_q, layer_norm(hidden, eps=eps))
+            ck, cv = lin(blk.cross_kv, context).chunk(2, dim=-1)
             if cfg.qk_ln:
-                pk = qk_norm(pk, blk.clip_k_norm)
-            cross = dual_cross_attention(heads(cq), heads(ck), heads(cv), heads(pk), heads(pv),
-                                         impl=impl)
-        else:
-            cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
-        hidden = hidden + row(blk.cross_out, cross.flatten(2))
+                cq, ck = qk_norm(cq, blk.cross_q_norm), qk_norm(ck, blk.cross_k_norm)
+            if cfg.use_i2v_clip:
+                pk, pv = lin(blk.clip_kv, clip_tokens).chunk(2, dim=-1)
+                if cfg.qk_ln:
+                    pk = qk_norm(pk, blk.clip_k_norm)
+                cross = dual_cross_attention(heads(cq), heads(ck), heads(cv), heads(pk), heads(pv),
+                                             impl=impl)
+            else:
+                cross = attention(heads(cq), heads(ck), heads(cv), impl=impl)
+            hidden = hidden + row(blk.cross_out, cross.flatten(2))
 
         # MLP
-        mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, round_ln=True, impl=impl)
-        if cfg.num_experts > 1:
-            mo = _moe(blk, mi, cfg.moe_top_k, mesh if tp else None)
-        else:
-            mo = row(blk.mlp_out, gelu_tanh(col(blk.mlp_in, mi)))
-        hidden = hidden + g_mlp * mo
+        with profiling.annotate("dit.mlp", follows=span):
+            mi = adaln_layer_norm(hidden, s_mlp, sc_mlp, eps=eps, round_ln=True, impl=impl)
+            if cfg.num_experts > 1:
+                mo = _moe(blk, mi, cfg.moe_top_k, mesh if tp else None)
+            else:
+                mo = row(blk.mlp_out, gelu_tanh(col(blk.mlp_in, mi)))
+            hidden = hidden + g_mlp * mo
         if mesh is not None and self._shards_carries(mesh):
             hidden = comm.split(hidden, mesh, MODEL_AXIS, -1)
         return hidden

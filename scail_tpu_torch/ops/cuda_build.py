@@ -29,7 +29,6 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
 
 _LOCK = threading.Lock()
 _LIB = None
-BUILD_INFO: dict = {}
 
 _P = ctypes.c_void_p
 _I = ctypes.c_int
@@ -126,7 +125,6 @@ def lib() -> ctypes.CDLL:
             cdll.scail_adaln_layer_norm.restype = _I
             cdll.scail_rotary_interleaved.argtypes = [_P] * 4 + [_I] * 4 + [_L] * 3 + [_P]
             cdll.scail_rotary_interleaved.restype = _I
-            BUILD_INFO.update(info)
             _LIB = cdll
         return _LIB
 

@@ -12,8 +12,11 @@ from __future__ import annotations
 import importlib
 from typing import Any, Dict
 
+from scail_tpu_torch.utils.profiling import annotate
+
 _ALIASES: Dict[str, str] = {}
 _REGISTRY: Dict[str, Any] = {}
+_IMPORTED = False
 
 
 def register(name: str = None, alias=()):
@@ -52,25 +55,31 @@ def instantiate_from_config(config, **extra_kwargs):
 
 
 def ensure_imports():
-    """Import every port module that registers aliases."""
-    for m in (
-        "scail_tpu_torch.models.dit",
-        "scail_tpu_torch.models.wan_vae",
-        "scail_tpu_torch.models.umt5",
-        "scail_tpu_torch.models.clip_vit",
-        "scail_tpu_torch.diffusion.denoiser",
-        "scail_tpu_torch.diffusion.scaling",
-        "scail_tpu_torch.diffusion.discretization",
-        "scail_tpu_torch.diffusion.guiders",
-        "scail_tpu_torch.diffusion.samplers",
-        "scail_tpu_torch.diffusion.conditioner",
-        "scail_tpu_torch.diffusion.loss",
-        "scail_tpu_torch.diffusion.sigma_sampling",
-        "scail_tpu_torch.diffusion.embedders",
-        "scail_tpu_torch.models.unet",
-        "scail_tpu_torch.models.video_unet",
-        "scail_tpu_torch.autoencoding.autoencoder_kl",
-        "scail_tpu_torch.autoencoding.vqgan",
-        "scail_tpu_torch.inference.engine",
-    ):
-        importlib.import_module(m)
+    """Import every port module that registers aliases (once a process, in
+    the host-clock span `setup.imports`)."""
+    global _IMPORTED
+    if _IMPORTED:
+        return
+    with annotate("setup.imports", always=True):
+        for m in (
+            "scail_tpu_torch.models.dit",
+            "scail_tpu_torch.models.wan_vae",
+            "scail_tpu_torch.models.umt5",
+            "scail_tpu_torch.models.clip_vit",
+            "scail_tpu_torch.diffusion.denoiser",
+            "scail_tpu_torch.diffusion.scaling",
+            "scail_tpu_torch.diffusion.discretization",
+            "scail_tpu_torch.diffusion.guiders",
+            "scail_tpu_torch.diffusion.samplers",
+            "scail_tpu_torch.diffusion.conditioner",
+            "scail_tpu_torch.diffusion.loss",
+            "scail_tpu_torch.diffusion.sigma_sampling",
+            "scail_tpu_torch.diffusion.embedders",
+            "scail_tpu_torch.models.unet",
+            "scail_tpu_torch.models.video_unet",
+            "scail_tpu_torch.autoencoding.autoencoder_kl",
+            "scail_tpu_torch.autoencoding.vqgan",
+            "scail_tpu_torch.inference.engine",
+        ):
+            importlib.import_module(m)
+    _IMPORTED = True
