@@ -18,7 +18,10 @@ Phases (any failure exits non-zero; no exception is swallowed):
                  for the video and the pose call of a layer; K2 and K5 also at
                  the STA path's own shape, the 1,792 dense ref rows against
                  48,832 kv rows (K2 runs nowhere else).  K3 also at the text
-                 lengths of umt5's varlen_text, 1 and 37 keys.
+                 lengths of umt5's varlen_text, 1 and 37 keys.  K1/K2 also at
+                 the edges of their 128-row q and kv tiles (Skv 1, 64, 127,
+                 128, 129, 176 against Sq 1, 100, 128, 129, each rope mode)
+                 and on q, k and v as strided head views of one qkv tensor.
   4. DiT      -- the 1.3B DiT, all 30 layers, random bf16 weights, CFG batch 2 at
                  512x896/81 frames (48,832 tokens): 30 + 30 kernel launches, a
                  finite output, its time; kernel path vs plain path on a small input.
@@ -432,7 +435,8 @@ PTXAS = {}
 def ptxas_usage(log_text):
     """Registers and spill bytes of every entry function in an `nvcc -Xptxas
     -v` log, and the lines that carry a C7515 / C7512 note (wgmmas
-    serialised, or serialised for spills)."""
+    serialised, or serialised for spills) or a C7508 warning (a setmaxnreg
+    ignored: its register count at entry could not be determined)."""
     usage, notes, fn = {}, [], None
     for ln in log_text.splitlines():
         m = re.search(r"Compiling entry function '(\S+)'", ln)
@@ -443,7 +447,7 @@ def ptxas_usage(log_text):
             usage[fn]["spill_bytes"] = int(m.group(1)) + int(m.group(2))
         elif fn and (m := re.search(r"Used (\d+) registers", ln)):
             usage[fn]["registers"] = int(m.group(1))
-        if "C7515" in ln or "C7512" in ln:
+        if "C7515" in ln or "C7512" in ln or "C7508" in ln or "setmaxnreg ignored" in ln:
             notes.append(ln.strip())
     return usage, notes
 
@@ -465,11 +469,11 @@ def phase_build():
     log(f"built {os.path.relpath(info['path'], ROOT)} in {info['seconds']:.2f} s "
         f"(cached={info['cached']}); ptxas registers: "
         + ", ".join(f"{fn[:60]} {u['registers']}" for fn, u in usage.items())
-        + f"; spills: {spills or 'none'}; C7515/C7512 notes: {notes or 'none'}")
+        + f"; spills: {spills or 'none'}; C7515/C7512/C7508 notes: {notes or 'none'}")
     body_spills = kernel_usage(*FLASH_BODY_KERNELS)
     body_spills = {fn: u for fn, u in body_spills.items() if u["spill_bytes"]}
     if body_spills or notes:
-        fail(f"ptxas spilled or serialised wgmmas: {body_spills} {notes}")
+        fail(f"ptxas spilled, serialised wgmmas or ignored a setmaxnreg: {body_spills} {notes}")
     return info["seconds"]
 
 
@@ -490,20 +494,36 @@ def phase_kernels():
         return [t.float() for t in ts]
 
     results = {}
-    # ragged small case: B = 2 x 2 heads, S = 150, Skv = 176
-    for mode, interleaved in (("interleaved", True), ("halves", False), ("none", None)):
-        q, k, v = rnd(2, 150, 2, 128), rnd(2, 176, 2, 128), rnd(2, 176, 2, 128)
-        rope = None
-        if interleaved is not None:
-            ang = torch.randn(150, 64, generator=gen, device=dev)
-            ang = ang.repeat_interleave(2, -1) if interleaved else torch.cat([ang, ang], -1)
-            rope = (ang.cos(), ang.sin())
+
+    def tables(sq, interleaved):
+        if interleaved is None:
+            return None
+        ang = torch.randn(sq, 64, generator=gen, device=dev)
+        ang = ang.repeat_interleave(2, -1) if interleaved else torch.cat([ang, ang], -1)
+        return (ang.cos(), ang.sin())
+
+    def small(tag, q, k, v, interleaved):
+        rope = tables(q.shape[1], interleaved)
         o, lse = A.flash_attention(q, k, v, rope=rope, rope_interleaved=bool(interleaved))
         torch.cuda.synchronize()
         po, plse = A.flash_attention_plain(*f32(q, k, v), rope=rope,
                                            rope_interleaved=bool(interleaved))
-        compare(f"flash rope={mode} small out", o, po)
-        compare(f"flash rope={mode} small lse", lse, plse, lse=True)
+        compare(f"{tag} out", o, po)
+        compare(f"{tag} lse", lse, plse, lse=True)
+
+    for mode, interleaved in (("interleaved", True), ("halves", False), ("none", None)):
+        # ragged small case: B = 2 x 2 heads, S = 150, Skv = 176
+        small(f"flash rope={mode} small", rnd(2, 150, 2, 128), rnd(2, 176, 2, 128),
+              rnd(2, 176, 2, 128), interleaved)
+        # the edges of a 128-row q tile and of a 128-row kv tile, each side
+        for skv in FLASH_EDGE_SKV:
+            for sq in FLASH_EDGE_SQ:
+                small(f"flash rope={mode} edge Sq={sq} Skv={skv}", rnd(2, sq, 2, 128),
+                      rnd(2, skv, 2, 128), rnd(2, skv, 2, 128), interleaved)
+        # q, k and v as the DiT hands them over: strided head views of one
+        # (b, s, 3 n, 128) projection
+        q, k, v = rnd(2, 300, 3 * 4, 128).chunk(3, dim=2)
+        small(f"flash rope={mode} strided qkv views (2,300,4,128)", q, k, v, interleaved)
 
     # main-path shape: 2 (CFG) x 12 heads, 48,832 tokens, real SCAIL tables
     S = 48832
@@ -543,7 +563,7 @@ def phase_kernels():
             flops = 4 * 24 * S * S * 128
             b_ms, b_by = bound(flops, nbytes(q, kk, v, o, lse, *(rope or ())))
             log(f"flash rope={mode} main shape: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} "
-                f"TFLOP/s, {b_ms / ms:.1%} of bound; mma.sync design "
+                f"TFLOP/s, {b_ms / ms:.1%} of bound; 64-key design "
                 f"{PARENT_MS['flash_attention_rope']} ms), plain {plain_ms:.3f} ms, SDPA "
                 f"{library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
             results["flash_attention_rope"] = dict(
@@ -788,19 +808,24 @@ QUANT_SHAPES = (("qkv", 97664, 5120, 15360), ("mlp_in", 97664, 5120, 13824),
                 ("cross_kv", 1024, 5120, 10240))
 
 
-# the earlier designs' times (mma.sync, synchronous loads) on NVIDIA H100 80GB
-# HBM3 at 700 W, from this script's phase 3 (PERF.md), logged beside each new time
+# the earlier designs' times on NVIDIA H100 80GB HBM3 at 700 W, from this
+# script's phase 3 (PERF.md), logged beside each new time: mma.sync with
+# synchronous loads, but K1 and K2, whose entry is the 64-key wgmma design
+# (one producer warp, 168 registers a thread) that the 128-key one replaced
 PARENT_MS = {"w8a16_matmul": {"qkv": 74.48, "mlp_in": 67.35, "mlp_out": 65.88,
                               "attn_out": 24.83, "cross_kv": 0.758},
              "w4a16_matmul": {"qkv": 67.61, "mlp_in": 60.70, "mlp_out": 60.98,
                               "attn_out": 22.74, "cross_kv": 0.554},
              "flash_attention_int8": 656.48,
-             "flash_attention_rope": 175.73, "flash_attention": 7.522,
+             "flash_attention_rope": 51.08, "flash_attention": 2.009,
              # K3's mma.sync design at the 1.3B and the 14B main-path shapes
              "dual_cross_attention": {"1.3B": 3.505, "14B": 11.551},
              # the first, mma.sync design of K7 / K8, one layer's two calls
              "sta_attention_fwd": 47.92, "sta_attention_fwd_lse": 24.79,
              "sta_attention_bwd_dq": 33.79, "sta_attention_bwd_dkv": 44.34}
+# K1/K2's edge cases: kv and q lengths around their 128-row tiles
+FLASH_EDGE_SKV = (1, 64, 127, 128, 129, 176)
+FLASH_EDGE_SQ = (1, 100, 128, 129)
 # the kernels built from csrc/flash_bodies.cuh (K1, K2, K3, K5, K7, K8): no spills
 FLASH_BODY_KERNELS = ("flash_fwd_kernel", "flash_bwd_dq_kernel", "flash_bwd_dkv_kernel",
                       "sta_fwd_kernel", "sta_bwd_dq_kernel", "sta_bwd_dkv_kernel",
@@ -1293,7 +1318,7 @@ def _ref_rows_fwd(q, k, v, ref):
     flops = 4 * q.shape[0] * q.shape[2] * ref * k.shape[1] * 128
     b_ms, b_by = bound(flops, nbytes(qr, k, v, o, lse))
     log(f"{tag}: kernel {ms:.3f} ms ({flops / ms / 1e9:.1f} TFLOP/s, {b_ms / ms:.1%} of bound; "
-        f"mma.sync design {PARENT_MS['flash_attention']} ms), plain {plain_ms:.3f} ms, "
+        f"64-key design {PARENT_MS['flash_attention']} ms), plain {plain_ms:.3f} ms, "
         f"SDPA {library_ms:.3f} ms, bound {b_ms:.3f} ms ({b_by})")
     return dict(max_abs_err=err, ms=ms, plain_ms=plain_ms, bound_ms=b_ms, bound_by=b_by,
                 library_ms=library_ms, tflops=flops / ms / 1e9, share_of_bound=b_ms / ms)

@@ -1,9 +1,16 @@
 // The loop bodies of the wgmma flash-attention kernels, shared by the dense
 // kernels (flash_attention.cu: K1, K2; flash_attention_bwd.cu: K5) and the
 // sliding-tile ones (sta_attention.cu: K7, K8).  Each body is templated on a
-// walk: the sequence of 64-row tiles its CTA streams through the TMA ring.
-//   * flash_fwd_body (K1, K2, K7) and flash_bwd_dq_body (K5 dq, K8 dq) hold
-//     their q rows and stream kv tiles.  A kv walk is a cursor: row() is the
+// walk: the sequence of tiles its CTA streams through the TMA ring.
+//   * flash_fwd_dense_body (K1, K2) takes fwd128::DenseKvWalk128, every kv
+//     row in 128-row tiles: a producer warpgroup that gives its registers to
+//     the two consumers with setmaxnreg, which then hold a 64 x 128 score
+//     tile beside the O accumulator.
+//   * flash_fwd_body (K7) and flash_bwd_dq_body (K5 dq, K8 dq) hold their q
+//     rows and stream 64-row kv tiles.  K7 keeps the 64-row tiles and
+//     flash_fwd_body: its kv blocks of 1,344 rows are 21 tiles of 64 but
+//     10.5 of 128, so 128-row tiles would compute masked columns in every
+//     block.  A kv walk is a cursor: row() is the
 //     first kv row of the current tile, limit() the number of its rows that
 //     belong to the walk (score columns at or past it are masked), next()
 //     moves on; count() is the number of tiles.  DenseKvWalk visits every
@@ -18,11 +25,14 @@
 //     64-row chunks of each q tile an STA inverse-table row lists.  Rows
 //     past a run's end get lse2 = +inf when staged, so p = exp2(min(s -
 //     lse2, 0)) = 0 for them and the products need no mask.
-// The forward's pieces (k1::prepare_q, the QK^T and P V issues, the tile
-// softmax and the P packing) are functions of their own, so that the dual
-// cross-attention (dual_cross_attention.cu: K3) runs them on its two-stream
-// walk.  The rest of each design (ring depths, register budgets, the first
-// kv tile peeled off the forward loop) is described at the kernels.
+// The 64-row forward's pieces (k1::prepare_q, the QK^T and P V issues, the
+// tile softmax and the P packing) are functions of their own, so that the
+// dual cross-attention (dual_cross_attention.cu: K3) runs them on its
+// two-stream walk: its CLIP stream of 257 keys is 5 tiles of 64 (320 rows
+// computed) but 3 of 128 (384).  The 128-row dense forward shares
+// k1::prepare_q (the same 128-row q tile) and has its own pieces in fwd128.
+// The rest of each design (ring depths, register budgets, the first kv tile
+// peeled off the forward loop) is described at the kernels.
 
 #pragma once
 
@@ -393,6 +403,272 @@ __device__ __forceinline__ void flash_fwd_body(
           pack_bf16(acc[4 * j + 2 * r] / l[r], acc[4 * j + 2 * r + 1] / l[r]);
     if (lse != nullptr && t == 0)
       lse[(long long)bh * Sq + row] = kLn2 * m[r] + logf(fmaxf(l[r], 1e-30f));
+  }
+}
+
+// ---- dense forward with 128-key tiles (K1, K2) ------------------------------
+// The dense forward's own design: a CTA of three warpgroups, the producer
+// cutting its registers to kProducerRegs with setmaxnreg so that the two
+// consumers run at kConsumerRegs, room for a 64 x 128 score tile beside the
+// 64 x 128 O accumulator; two CTAs of neighbouring q tiles in a cluster
+// share each K and V tile, each copying one column half into both.  K7 and
+// K3 keep flash_fwd_body and the 64-key pieces of k1 (see the top of this
+// file).  q is the same 128-row tile as there, prepared by k1::prepare_q.
+namespace fwd128 {
+
+constexpr int kKvRows = 128;                      // kv rows of a stage
+constexpr int kKvHalf = kKvRows * 128;            // bytes of one column half of a K or V tile
+constexpr int kKvTile = 2 * kKvHalf;              // bytes of a 128 x 128 bf16 tile
+constexpr int kConsumers = k1::kConsumers;        // 64 q rows each: 128 a CTA
+constexpr int kQRows = kConsumers * k1::kRows;
+constexpr int kStages = 2;                        // of K and of V each
+constexpr int kCluster = 2;                       // CTAs of a cluster: neighbouring q tiles
+constexpr int kThreads = 128 * (kConsumers + 1);  // + the producer warpgroup
+constexpr int kProducerRegs = 24;                 // 128 x 24 + 256 x 240 <= 65,536
+constexpr int kConsumerRegs = 240;
+constexpr int kQ = 0;                             // q: 2 halves of 128 rows (k1's layout)
+constexpr int kK = kQ + kConsumers * k1::kTile;   // K stages
+constexpr int kV = kK + kStages * kKvTile;        // V stages
+constexpr int kBars = kV + kStages * kKvTile;     // q_full, then full and empty of K and V
+constexpr int kSmem = kBars + 8 * (1 + 4 * kStages) + 1024;  // + alignment slack
+
+// The dense walk in 128-row tiles (tile it starts at row it * kKvRows): only
+// the last one is short.
+struct DenseKvWalk128 {
+  int Skv;
+  int kv0 = 0;
+  __device__ explicit DenseKvWalk128(int skv) : Skv(skv) {}
+  __device__ int count() const { return (Skv + kKvRows - 1) / kKvRows; }
+  __device__ int limit() const { return Skv - kv0; }
+  __device__ void next() { kv0 += kKvRows; }
+};
+
+// S = q K^T of one 128-row kv tile (8 k-steps over the head dim), one commit
+// group: q at descriptor qa (the CTA's 128-row tile, a consumer's rows), K at kb.
+__device__ __forceinline__ void issue_scores(float (&sc)[64], uint32_t qa, uint32_t kb) {
+  wgmma_fence();
+  static_for<8>([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    wgmma_m64n128k16_ss_c<kmajor_off(K, k1::kQHalf), kmajor_off(K, kKvHalf), (K > 0)>(sc, qa,
+                                                                                       kb);
+  });
+  wgmma_commit();
+}
+
+// O += P V of one 128-row tile (8 k-steps over its rows), V read through the
+// transposed descriptor vt (LBO = the halves' distance), one commit group.
+__device__ __forceinline__ void issue_pv(float (&acc)[64], const uint32_t (&pa)[8][4],
+                                         uint32_t vt) {
+  wgmma_fence();
+  static_for<8>([&](auto kk) {
+    constexpr int K = decltype(kk)::value;
+    wgmma_m64n128k16_rs_tb<2048 * K>(acc, pa[K], vt, 1);
+  });
+  wgmma_commit();
+}
+
+// k1::softmax_tile over 128 columns: element 4j + e of a thread is row g +
+// 8 (e >> 1), column 8j + 2t + (e & 1); columns at or past `lim` masked.
+__device__ __forceinline__ void softmax_tile(float (&sc)[64], float (&m)[2], float (&l)[2],
+                                             float (&alpha)[2], int lim, int t) {
+  if (lim < kKvRows) {  // the last tile runs past the sequence
+    const int left = lim - 2 * t;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+#pragma unroll
+      for (int e = 0; e < 4; ++e)
+        if (8 * j + (e & 1) >= left) sc[4 * j + e] = kNegInf;
+  }
+#pragma unroll
+  for (int r = 0; r < 2; ++r) {
+    float mx = kNegInf;
+#pragma unroll
+    for (int j = 0; j < 16; ++j)
+      mx = fmaxf(mx, fmaxf(sc[4 * j + 2 * r], sc[4 * j + 2 * r + 1]));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 1));
+    mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, 2));
+    const float m_next = fmaxf(m[r], mx);
+    alpha[r] = k1::exp2_ftz(m[r] - m_next);
+    float sum = 0.f;
+#pragma unroll
+    for (int j = 0; j < 16; ++j) {
+      sc[4 * j + 2 * r] = k1::exp2_ftz(sc[4 * j + 2 * r] - m_next);
+      sc[4 * j + 2 * r + 1] = k1::exp2_ftz(sc[4 * j + 2 * r + 1] - m_next);
+      sum += sc[4 * j + 2 * r] + sc[4 * j + 2 * r + 1];
+    }
+    l[r] = alpha[r] * l[r] + sum;
+    m[r] = m_next;
+  }
+}
+
+// P to bf16, columns [16 kk, 16 kk + 16) as the A fragment of k-step kk.
+__device__ __forceinline__ void pack_p(uint32_t (&pa)[8][4], const float (&sc)[64]) {
+#pragma unroll
+  for (int kk = 0; kk < 8; ++kk)
+#pragma unroll
+    for (int i = 0; i < 4; ++i) pa[kk][i] = pack_bf16(sc[8 * kk + 2 * i], sc[8 * kk + 2 * i + 1]);
+}
+
+}  // namespace fwd128
+
+// The dense forward of one CTA: q rows [q0, q0 + 128) of (b, h) against every
+// kv row in 128-row tiles; O and (when lse is not null) the LSE written for
+// the rows before Sq.  Launched with fwd128::kThreads threads and
+// fwd128::kSmem bytes, in clusters of fwd128::kCluster CTAs along x (a grid
+// of whole clusters: a CTA past Sq computes on TMA's zeros and writes
+// nothing).  K and V have rings of their own, so that a K stage is refilled
+// once QK^T has read it and QK^T of a tile waits for its K alone; a stage is
+// refilled once the consumers of both CTAs have released it, and the
+// producer's last wait (for the last V stages) also keeps its CTA, whose
+// barriers the other CTA's consumers arrive on, alive until they have.
+// The split into producer and consumers is the body's last statement, and the
+// consumers' code reaches no trap (mbar_wait_spin), so ptxas allocates each
+// side against its own setmaxnreg.
+template <int ROPE>
+__device__ __forceinline__ void flash_fwd_dense_body(
+    const CUtensorMap* tq, const CUtensorMap* tk, const CUtensorMap* tv,
+    const float* __restrict__ cos_t, const float* __restrict__ sin_t,
+    __nv_bfloat16* __restrict__ o, float* __restrict__ lse, int b, int h, int bh, int q0,
+    int Sq, fwd128::DenseKvWalk128 walk, Strides os, float qscale) {
+  using namespace fwd128;
+  constexpr int NW = kConsumers;
+  constexpr int S = kStages;
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* sm = align_1k(smem_raw);
+  uint64_t* q_full = reinterpret_cast<uint64_t*>(sm + kBars);
+  uint64_t* full_k = q_full + 1;
+  uint64_t* full_v = full_k + S;
+  uint64_t* empty_k = full_v + S;
+  uint64_t* empty_v = empty_k + S;
+
+  const int n_kv = walk.count();
+  if (threadIdx.x == 0) {
+    mbar_init(q_full, 1);
+    for (int s = 0; s < S; ++s) {
+      mbar_init(&full_k[s], 1);
+      mbar_init(&full_v[s], 1);
+      // one arrival per consumer warp of the cluster: a stage is refilled
+      // in every CTA at once
+      mbar_init(&empty_k[s], 4 * NW * kCluster);
+      mbar_init(&empty_v[s], 4 * NW * kCluster);
+    }
+    mbar_init_fence();
+  }
+  cluster_sync();  // the peer's barriers are ready before a copy or an arrival reaches them
+  const uint32_t rank = cluster_ctarank();
+
+  // the warpgroup, as a value ptxas knows to be the same across a warp
+  const int wg = __shfl_sync(0xffffffffu, static_cast<int>(threadIdx.x / 128), 0);
+  if (wg == NW) {  // producer warpgroup: one thread issues every copy
+    setmaxnreg_dec<kProducerRegs>();
+    if (threadIdx.x == NW * 128) {
+      mbar_arrive_expect_tx(q_full, NW * k1::kTile);
+      tma_load_4d(sm + kQ, tq, q_full, 0, q0, h, b);
+      tma_load_4d(sm + kQ + k1::kQHalf, tq, q_full, 64, q0, h, b);
+      // tile it of K (base kK) or V (base kV) into its stage once released
+      // in both CTAs: this CTA copies column half `rank` into both, the
+      // other CTA the other half
+      auto load = [&](int base, const CUtensorMap* map, uint64_t* full, uint64_t* empty, int it) {
+        const int s = it % S;
+        mbar_wait(&empty[s], ((it / S) & 1) ^ 1);
+        unsigned char* dst = sm + base + s * kKvTile + rank * kKvHalf;
+        mbar_arrive_expect_tx(&full[s], kKvTile);
+        tma_load_4d_multicast(dst, map, &full[s], (1 << kCluster) - 1, 64 * rank, it * kKvRows, h,
+                              b);
+      };
+      // K leads V by a tile, as the consumers read them
+      load(kK, tk, full_k, empty_k, 0);
+      for (int it = 1; it < n_kv; ++it) {
+        load(kK, tk, full_k, empty_k, it);
+        load(kV, tv, full_v, empty_v, it - 1);
+      }
+      load(kV, tv, full_v, empty_v, n_kv - 1);
+      // until the consumers release the last V stages: a lost copy or arrival
+      // traps here (the consumers' waits cannot trap)
+      for (int it = max(n_kv - S, 0); it < n_kv; ++it) mbar_wait(&empty_v[it % S], (it / S) & 1);
+    }
+  } else {  // consumer warpgroup c = wg: q rows [row0, row0 + 64)
+    setmaxnreg_inc<kConsumerRegs>();
+    const int c = wg;
+    const int warp = (threadIdx.x / 32) % 4;
+    const int lane = threadIdx.x % 32;
+    const int t = lane % 4;
+    const int row0 = q0 + c * k1::kRows;
+    mbar_wait_spin(q_full, 0);
+    k1::prepare_q<ROPE>(sm + kQ, c, threadIdx.x % 128, row0, Sq, cos_t, sin_t, qscale);
+    fence_proxy_async_smem();
+    named_bar_sync(k1::kPrepBar + c, 128);
+
+    const uint32_t qa = desc_lo(smem_u32(sm + kQ) + c * k1::kHalf, 0);
+    float acc[64];
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    float m[2] = {kNegInf, kNegInf};
+    float l[2] = {0.f, 0.f};  // per-thread partial row sums, reduced over the quad at the end
+    float alpha[2];
+    float sc[64];
+    uint32_t pa[8][4];
+
+    // S = q K^T of tile `it`, once its K has landed
+    auto issue_scores = [&](int it) {
+      mbar_wait_spin(&full_k[it % S], (it / S) & 1);
+      fwd128::issue_scores(sc, qa, desc_lo(smem_u32(sm + kK + (it % S) * kKvTile), 0));
+    };
+    // O += P V of tile `it`, once its V has landed
+    auto issue_pv = [&](int it) {
+      mbar_wait_spin(&full_v[it % S], (it / S) & 1);
+      fwd128::issue_pv(acc, pa, desc_lo(smem_u32(sm + kV + (it % S) * kKvTile), kKvHalf));
+    };
+    auto release = [&](uint64_t* empty, int it) {  // in both CTAs
+      __syncwarp();
+      if (lane == 0) mbar_arrive(&empty[it % S]);
+      if (lane == 1) mbar_arrive_cluster(&empty[it % S], rank ^ 1);
+    };
+    auto rescale = [&] {  // O *= alpha of the tile whose P V comes next
+#pragma unroll
+      for (int i = 0; i < 64; ++i) acc[i] *= alpha[(i >> 1) & 1];
+    };
+
+    DenseKvWalk128 w = walk;
+    issue_scores(0);
+    wgmma_wait<0>();
+    fence_regs(sc);
+    release(empty_k, 0);
+    fwd128::softmax_tile(sc, m, l, alpha, w.limit(), t);  // O is still zero: alpha is moot
+    fwd128::pack_p(pa, sc);
+    for (int it = 1; it < n_kv; ++it) {
+      w.next();
+      issue_scores(it);
+      rescale();  // under QK^T of tile it
+      issue_pv(it - 1);
+      wgmma_wait<1>();  // the scores of tile it; P V of tile it - 1 may still run
+      fence_regs(sc);
+      release(empty_k, it);
+      fwd128::softmax_tile(sc, m, l, alpha, w.limit(), t);
+      wgmma_wait<0>();  // P V of tile it - 1: its V stage and the A registers are free
+      fence_regs(acc);
+      release(empty_v, it - 1);
+      fwd128::pack_p(pa, sc);
+    }
+    rescale();
+    issue_pv(n_kv - 1);
+    wgmma_wait<0>();
+    fence_regs(acc);
+    release(empty_v, n_kv - 1);
+
+    k1::reduce_rowsums(l);
+#pragma unroll
+    for (int r = 0; r < 2; ++r) {
+      const int row = row0 + warp * 16 + lane / 4 + 8 * r;
+      if (row >= Sq) continue;
+      __nv_bfloat16* orow = o + b * os.b + h * os.h + (long long)row * os.s + 2 * t;
+#pragma unroll
+      for (int j = 0; j < 16; ++j)
+        *reinterpret_cast<uint32_t*>(orow + 8 * j) =
+            pack_bf16(acc[4 * j + 2 * r] / l[r], acc[4 * j + 2 * r + 1] / l[r]);
+      if (lse != nullptr && t == 0)
+        lse[(long long)bh * Sq + row] = kLn2 * m[r] + logf(fmaxf(l[r], 1e-30f));
+    }
   }
 }
 

@@ -1,11 +1,13 @@
 // Hopper building blocks of the wgmma kernels (flash_attention.cu,
 // flash_attention_bwd.cu, sta_attention.cu and dual_cross_attention.cu through
 // flash_bodies.cuh, flash_attention_int8.cu, w8a16_matmul.cu): TMA tile
-// copies and bulk copies completed on mbarriers, TMA tile stores, cp.async
-// copies for strides TMA cannot take, named barriers and the async-proxy
-// fence, warpgroup matrix multiplies (wgmma, bf16 and s8) with operands
-// described in shared memory, and the host-side construction of the TMA
-// tensor maps.
+// copies (also multicast to the CTAs of a cluster) and bulk copies completed
+// on mbarriers, arrivals on another CTA's mbarrier, TMA tile stores,
+// cp.async copies for strides TMA cannot take, named and cluster barriers,
+// the async-proxy fence, register reallocation between warpgroups
+// (setmaxnreg), warpgroup matrix multiplies (wgmma, bf16 and s8) with
+// operands described in shared memory, and the host-side construction of the
+// TMA tensor maps.
 //
 // Shared-memory tile layout.  A (rows, 128) bf16 tile is kept as two column
 // halves, each (rows, 64) with 128-byte rows in the 128-byte swizzle that TMA
@@ -58,6 +60,17 @@ __device__ __forceinline__ void mbar_arrive(uint64_t* bar) {
   asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];\n" ::"r"(smem_u32(bar)) : "memory");
 }
 
+// One arrival on the barrier at the same shared-memory offset in CTA `rank`
+// of the cluster.
+__device__ __forceinline__ void mbar_arrive_cluster(uint64_t* bar, uint32_t rank) {
+  asm volatile(
+      "{\n.reg .b32 remote;\n"
+      "mapa.shared::cluster.u32 remote, %0, %1;\n"
+      "mbarrier.arrive.shared::cluster.b64 _, [remote];\n}\n" ::"r"(smem_u32(bar)),
+      "r"(rank)
+      : "memory");
+}
+
 // One arrival that also announces `bytes` of TMA transfers to come.
 __device__ __forceinline__ void mbar_arrive_expect_tx(uint64_t* bar, uint32_t bytes) {
   asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;\n" ::"r"(smem_u32(bar)),
@@ -84,6 +97,24 @@ __device__ __forceinline__ void mbar_wait(uint64_t* bar, uint32_t parity) {
   }
 }
 
+// mbar_wait without the trap, for the consumers of a kernel that raises their
+// registers with setmaxnreg_inc: ptxas compiles code that can reach a trap
+// at the kernel's entry register count (at 384 threads 168; the wgmmas
+// serialised, C7512, and spills), setmaxnreg or not.  Such a kernel keeps
+// the trapping wait in its producer, on the same progress.
+__device__ __forceinline__ void mbar_wait_spin(uint64_t* bar, uint32_t parity) {
+  const uint32_t addr = smem_u32(bar);
+  uint32_t done = 0;
+  while (!done)
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(addr), "r"(parity)
+        : "memory");
+}
+
 // ---- named barriers and proxy fences ---------------------------------------
 // Wait until `threads` threads (a multiple of 32) have reached barrier `id`
 // (1-15; 0 is __syncthreads).
@@ -91,10 +122,42 @@ __device__ __forceinline__ void named_bar_sync(int id, int threads) {
   asm volatile("bar.sync %0, %1;\n" ::"r"(id), "r"(threads) : "memory");
 }
 
+// ---- clusters ---------------------------------------------------------------
+__device__ __forceinline__ uint32_t cluster_ctarank() {
+  uint32_t r;
+  asm volatile("mov.u32 %0, %%cluster_ctarank;\n" : "=r"(r));
+  return r;
+}
+
+// Every thread of every CTA of the cluster waits for all the others (those
+// that have not exited); the arrival releases, the wait acquires.
+__device__ __forceinline__ void cluster_sync() {
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
 // Make this thread's ordinary shared-memory writes visible to the async
 // proxy (wgmma operand reads, TMA); a barrier after it orders the readers.
 __device__ __forceinline__ void fence_proxy_async_smem() {
   asm volatile("fence.proxy.async.shared::cta;\n" ::: "memory");
+}
+
+// ---- register reallocation -------------------------------------------------
+// Lower (dec) or raise (inc) the register cap of the calling warpgroup to N
+// (a multiple of 8 in [24, 256]).  All four warps of the warpgroup execute it
+// together; ptxas allocates the code after it against N only where every path
+// from the kernel's entry to it passes one such instruction (else it warns,
+// C7508, and ignores it) and no trap can be reached (see mbar_wait_spin).  An
+// inc waits until other warpgroups' decs have returned enough registers to
+// the SM.
+template <int N>
+__device__ __forceinline__ void setmaxnreg_dec() {
+  asm volatile("setmaxnreg.dec.sync.aligned.u32 %0;\n" ::"n"(N));
+}
+
+template <int N>
+__device__ __forceinline__ void setmaxnreg_inc() {
+  asm volatile("setmaxnreg.inc.sync.aligned.u32 %0;\n" ::"n"(N));
 }
 
 // ---- TMA ------------------------------------------------------------------
@@ -107,6 +170,20 @@ __device__ __forceinline__ void tma_load_4d(void* dst, const CUtensorMap* map, u
       "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
       " [%0], [%1, {%3, %4, %5, %6}], [%2];\n" ::"r"(smem_u32(dst)),
       "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "r"(c0), "r"(c1), "r"(c2), "r"(c3)
+      : "memory");
+}
+
+// tma_load_4d into the same shared-memory offset of every CTA of the cluster
+// in `mask` (bit r: rank r), each copy counted on the barrier at `bar`'s
+// offset in its CTA.
+__device__ __forceinline__ void tma_load_4d_multicast(void* dst, const CUtensorMap* map,
+                                                      uint64_t* bar, uint16_t mask, int c0,
+                                                      int c1, int c2, int c3) {
+  asm volatile(
+      "cp.async.bulk.tensor.4d.shared::cluster.global.mbarrier::complete_tx::bytes"
+      ".multicast::cluster [%0], [%1, {%4, %5, %6, %7}], [%2], %3;\n" ::"r"(smem_u32(dst)),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(smem_u32(bar)), "h"(mask), "r"(c0), "r"(c1),
+      "r"(c2), "r"(c3)
       : "memory");
 }
 
@@ -275,6 +352,62 @@ __device__ __forceinline__ void wgmma_m64n64k16_ss_c(float (&d)[32], uint32_t a_
         "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
         "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
         "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31])
+        : "r"(a_lo), "r"(b_lo), "n"(OffA >> 4), "n"(OffB >> 4), "n"(kDescHi), "r"(0));
+  }
+}
+
+// D (64 x 128, f32) = A (64 x 16) * B (16 x 128) + (ACCUMULATE ? D : 0), A
+// and B bf16 in shared memory, both K-major: descriptor low words a_lo / b_lo
+// (desc_lo) advanced by OffA / OffB bytes.  Without ACCUMULATE the old D is
+// not an input, so its registers are free until the product lands.
+template <int OffA, int OffB, bool ACCUMULATE>
+__device__ __forceinline__ void wgmma_m64n128k16_ss_c(float (&d)[64], uint32_t a_lo,
+                                                      uint32_t b_lo) {
+  if constexpr (ACCUMULATE) {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b32 lo;\n.reg .b64 da, db;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "add.u32 lo, %64, %66;\n"
+        "mov.b64 da, {lo, %68};\n"
+        "add.u32 lo, %65, %67;\n"
+        "mov.b64 db, {lo, %68};\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, da, db, p, 1, 1, 0, 0;\n}\n"
+        : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]), "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]), "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]), "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]), "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]), "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]), "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]), "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]), "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+        : "r"(a_lo), "r"(b_lo), "n"(OffA >> 4), "n"(OffB >> 4), "n"(kDescHi), "r"(1));
+  } else {
+    asm volatile(
+        "{\n.reg .pred p;\n.reg .b32 lo;\n.reg .b64 da, db;\n"
+        "setp.ne.b32 p, %69, 0;\n"
+        "add.u32 lo, %64, %66;\n"
+        "mov.b64 da, {lo, %68};\n"
+        "add.u32 lo, %65, %67;\n"
+        "mov.b64 db, {lo, %68};\n"
+        "wgmma.mma_async.sync.aligned.m64n128k16.f32.bf16.bf16 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7, %8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23, %24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39, %40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55, %56, %57, %58, %59, %60, %61, %62, %63"
+        "}, da, db, p, 1, 1, 0, 0;\n}\n"
+        : "=f"(d[0]), "=f"(d[1]), "=f"(d[2]), "=f"(d[3]), "=f"(d[4]), "=f"(d[5]), "=f"(d[6]), "=f"(d[7]),
+        "=f"(d[8]), "=f"(d[9]), "=f"(d[10]), "=f"(d[11]), "=f"(d[12]), "=f"(d[13]), "=f"(d[14]), "=f"(d[15]),
+        "=f"(d[16]), "=f"(d[17]), "=f"(d[18]), "=f"(d[19]), "=f"(d[20]), "=f"(d[21]), "=f"(d[22]), "=f"(d[23]),
+        "=f"(d[24]), "=f"(d[25]), "=f"(d[26]), "=f"(d[27]), "=f"(d[28]), "=f"(d[29]), "=f"(d[30]), "=f"(d[31]),
+        "=f"(d[32]), "=f"(d[33]), "=f"(d[34]), "=f"(d[35]), "=f"(d[36]), "=f"(d[37]), "=f"(d[38]), "=f"(d[39]),
+        "=f"(d[40]), "=f"(d[41]), "=f"(d[42]), "=f"(d[43]), "=f"(d[44]), "=f"(d[45]), "=f"(d[46]), "=f"(d[47]),
+        "=f"(d[48]), "=f"(d[49]), "=f"(d[50]), "=f"(d[51]), "=f"(d[52]), "=f"(d[53]), "=f"(d[54]), "=f"(d[55]),
+        "=f"(d[56]), "=f"(d[57]), "=f"(d[58]), "=f"(d[59]), "=f"(d[60]), "=f"(d[61]), "=f"(d[62]), "=f"(d[63])
         : "r"(a_lo), "r"(b_lo), "n"(OffA >> 4), "n"(OffB >> 4), "n"(kDescHi), "r"(0));
   }
 }

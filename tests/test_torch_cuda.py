@@ -75,11 +75,13 @@ def _check_flash(q, k, v, rope=None, interleaved=True):
 
 @pytest.mark.cuda
 @pytest.mark.parametrize("rope", [False, True], ids=["norope", "interleaved"])
-@pytest.mark.parametrize("sq", [1, 63, 64, 65, 127, 128, 129])
-@pytest.mark.parametrize("skv", [1, 63, 64, 65, 127, 128, 129])
+@pytest.mark.parametrize("sq", [1, 63, 64, 65, 127, 128, 129, 256, 257])
+@pytest.mark.parametrize("skv", [1, 63, 64, 65, 127, 128, 129, 256, 257])
 def test_flash_attention_ragged_tiles(cuda, sq, skv, rope):
-    """Both sides of the 64-row kv stages and of the 128-row q tile (two
-    consumer warpgroups of 64): every q and kv tail, Sq != Skv."""
+    """Both sides of the 128-row kv tiles and of the 128-row q tile (two
+    consumer warpgroups of 64), and of a cluster's two q tiles (257 rows: a
+    second cluster whose second CTA lies past Sq): every q and kv tail,
+    Sq != Skv."""
     q = _rnd(cuda, 1, sq, 2, 128)
     k, v = _rnd(cuda, 1, skv, 2, 128), _rnd(cuda, 1, skv, 2, 128)
     _check_flash(q, k, v, _tables(cuda, sq, True) if rope else None)
