@@ -6,8 +6,9 @@
 For each seed, one run of the cell as the benchmark makes it (set-up, a
 short window at the cell's own load, the check of a step drawn from the
 seed): the program's gaps to the reference, the lower readings.  For each
-of --control-seeds, on the same step, the gaps of the control, the
-reference computed with float8 (e4m3) matrix products: the upper readings.
+of --control-seeds, on the same step, the gaps of the architecture's
+control (for SCAIL's DiT the reference computed with float8 (e4m3) matrix
+products): the upper readings.
 One JSON line a seed on standard output, and in --out.  Not part of the
 benchmark's runs.
 """

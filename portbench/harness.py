@@ -1,9 +1,11 @@
 """One run of a cell: set-up, the measured window, the readings, the check.
 
-Set-up builds the port's VideoDiffusionEngine from the configuration (the
-DiT, its denoiser and the RFSampler of the YAML), puts the benchmark's
-weights into its DiT, makes the request's conditioning, and starts
-`engine.sample` on the first request: its first step is the warm step.  The
+Set-up builds the engine from the configuration and puts the benchmark's
+weights into its networks, makes the request's conditioning, and starts the
+first request: its first step is the warm step.  Each of these is the
+architecture's (`cell.arch`, portbench/arch; for SCAIL's DiT the port's
+VideoDiffusionEngine with the DiT, its denoiser and the YAML's RFSampler);
+the window, the readings, the trace and the check are shared.  The
 window opens at the second step, after a synchronize, and closes when the
 host, about to start a step, finds `seconds` gone: the steps it has already
 queued finish and are counted, and the window ends in a synchronize.  A
@@ -11,11 +13,11 @@ request is the sampler's 50 steps; the next one, with its own noise from the
 seed, follows it in the same window.
 
 The window is driven through the sampler's own `step` (wrapped to time and
-record it) and, in a traced run, through forward hooks on the DiT that
-record CUDA events and the host spans `dit_forward` and `sampler`.  After
-the window the program's state is freed and one step drawn from the seed is
-computed again by the plain reference, from the state the program began it
-with (see portbench.check).
+record it) and, in a traced run, through forward hooks on each of the
+architecture's networks that record CUDA events and the host spans
+`dit_forward` and `sampler`.  After the window the program's state is freed
+and one step drawn from the seed is computed again by the plain reference,
+from the state the program began it with (see portbench.check).
 """
 
 from __future__ import annotations
@@ -29,10 +31,8 @@ from typing import Callable, Dict, List, Optional
 
 import torch
 
-from portbench import check, flops, inputs, trace
-from portbench.geometry import Geometry
+from portbench import check, flops, trace
 from portbench.manifest import Cell, metric_readers
-from portbench.weights import block_tensors, dit_param_specs
 
 
 class WindowClosed(Exception):
@@ -73,16 +73,20 @@ class Window:
         self.noises.append(noise)
         self._in_request = 0
 
-    def wrap(self, step_fn):
-        def step(denoise_fn, x, sigma, next_sigma, *args, **kw):
+    def wrap(self, step_fn, view):
+        """step_fn wrapped; view(args, out) -> (x, sigma, next sigma, x next)
+        of one call (the architecture's step_view)."""
+        def step(*args, **kw):
             if self.warm is not None and self.t_open is None:
                 self.sync()
                 self.on_open()
                 self.t_open = time.perf_counter()
             elif self.open and time.perf_counter() - self.t_open >= self.seconds:
                 raise WindowClosed
-            out = step_fn(denoise_fn, x, sigma, next_sigma, *args, **kw)
-            rec = StepRecord(len(self.noises) - 1, self._in_request, sigma, next_sigma, x, out)
+            out = step_fn(*args, **kw)
+            x, sigma, next_sigma, x_next = view(args, out)
+            rec = StepRecord(len(self.noises) - 1, self._in_request, sigma, next_sigma, x,
+                             x_next)
             self._in_request += 1
             if self.warm is None:
                 self.warm = rec
@@ -99,11 +103,13 @@ class Window:
 
 
 class ForwardMarks:
-    """Forward hooks on the DiT, while the window is open: a CUDA event at
-    each forward's start and end, and the host spans `dit_forward` (the
-    forward) and `sampler` (from one forward's end to the next one's start)."""
+    """Forward hooks on each network, while the window is open: a CUDA event
+    at each forward's start and end, and the host spans `dit_forward` (the
+    forward) and `sampler` (from one forward's end to the next one's start).
+    The networks run one at a time, so the events alternate start, end: a
+    forward that starts inside another raises."""
 
-    def __init__(self, dit: torch.nn.Module, window: Window):
+    def __init__(self, nets: List[torch.nn.Module], window: Window):
         from torch.autograd.profiler import record_function
 
         self.window = window
@@ -111,8 +117,8 @@ class ForwardMarks:
         self.ends: List[torch.cuda.Event] = []
         self._span = None
         self._record_function = record_function
-        self._handles = [dit.register_forward_pre_hook(self._pre),
-                         dit.register_forward_hook(self._post)]
+        self._handles = [h for net in nets for h in (net.register_forward_pre_hook(self._pre),
+                                                      net.register_forward_hook(self._post))]
 
     def _switch(self, name: Optional[str]) -> None:
         if self._span is not None:
@@ -129,6 +135,9 @@ class ForwardMarks:
 
     def _pre(self, module, args):
         if self.window.open:
+            if len(self.starts) != len(self.ends):
+                raise RuntimeError(f"{type(module).__name__} started inside another hooked "
+                                   f"network's forward: list only networks that do not nest")
             self._event(self.starts)
             self._switch("dit_forward")
 
@@ -147,38 +156,6 @@ class ForwardMarks:
         return [e.elapsed_time(s) for e, s in zip(self.ends, self.starts[1:])]
 
 
-def build_engine(cell: Cell, device: str):
-    """The port's engine from the cell's configuration: its DiT, denoiser and
-    sampler (the encoders are not in these cells)."""
-    from scail_tpu_torch.engine import VideoDiffusionEngine
-
-    model = cell.config["model"]
-    model_config = {k: model[k] for k in ("use_i2v_clip", "latent_input", "use_pose",
-                                            "denoiser_config", "sampler_config") if k in model}
-    model_config["network_config"] = dict(model["network_config"], params=cell.net)
-    return VideoDiffusionEngine(model_config, {"bf16": cell.config["dtype"] == "bfloat16"},
-                                device=device)
-
-
-def load_weights(engine, cell: Cell, seed: int) -> torch.nn.Module:
-    """Build the port's DiT on the meta device and give it the benchmark's
-    weights for `seed` as its parameters (no copy)."""
-    dit = engine.network.build("meta")
-    specs = dit_param_specs(cell.net)
-    want = {name: tuple(shape) for spec in specs.values() for name, shape in spec}
-    have = {name: tuple(p.shape) for name, p in dit.named_parameters()}
-    if want != have:
-        raise RuntimeError(f"the DiT's parameters differ from the benchmark's: "
-                           f"{sorted(set(want.items()) ^ set(have.items()))[:8]}")
-    dtype = engine.network.config.compute_dtype
-    for block, spec in specs.items():
-        for name, t in block_tensors(seed, block, spec, device=engine.device, dtype=dtype).items():
-            parent, _, leaf = name.rpartition(".")
-            dit.get_submodule(parent)._parameters[leaf] = torch.nn.Parameter(t, requires_grad=False)
-    engine.dit = dit.eval()
-    return engine.dit
-
-
 def launch_counts() -> Dict[str, int]:
     from scail_tpu_torch.ops import attention, quant
 
@@ -190,16 +167,6 @@ def reset_launch_counts() -> None:
 
     attention.reset_launch_counts()
     quant.reset_launch_counts()
-
-
-def expected_launches(cell: Cell, forwards: int) -> Dict[str, int]:
-    L = cell.net["num_layers"]
-    out: Dict[str, int] = {}
-    for name, n in cell.traffic["launches_per_layer"].items():
-        out[name] = out.get(name, 0) + n * L * forwards
-    for name, n in cell.traffic.get("launches_per_forward", {}).items():
-        out[name] = out.get(name, 0) + n * forwards
-    return out
 
 
 def log(msg: str) -> None:
@@ -214,7 +181,7 @@ class Readings:
     step_s: float                   # its seconds over its steps
     work: flops.StepWork            # the work of one step, from shapes
     trace: Optional[trace.Trace]    # the profiler's operations and spans
-    forward_gaps_ms: List[float]    # device ms from a DiT forward's end to the next one's start
+    forward_gaps_ms: List[float]    # device ms from a network forward's end to the next one's start
 
 
 def run_cell(cell: Cell, seed: int, seconds: float, *, trace_run: bool = False,
@@ -228,10 +195,10 @@ def run_cell(cell: Cell, seed: int, seconds: float, *, trace_run: bool = False,
     dev = torch.device(device)
     cuda = dev.type == "cuda"
     sync = (lambda: torch.cuda.synchronize(dev)) if cuda else (lambda: None)
-    engine = build_engine(cell, device)
-    dit = load_weights(engine, cell, seed)
-    net, traffic = cell.net, cell.traffic
-    cond, uncond = inputs.conditioning(seed, net, traffic, device=dev)
+    arch = cell.arch
+    engine = arch.build_engine(cell, device)
+    nets = arch.load_weights(engine, cell, seed)
+    cond, uncond = arch.conditioning(cell, seed, dev)
     if cuda:
         torch.cuda.reset_peak_memory_stats(dev)
 
@@ -252,18 +219,14 @@ def run_cell(cell: Cell, seed: int, seconds: float, *, trace_run: bool = False,
 
     window = Window(seconds, sync, on_open)
     if trace_run and cuda:
-        marks = ForwardMarks(dit, window)
-    engine.sampler.step = window.wrap(engine.sampler.step)
-    gen = torch.Generator(device=dev).manual_seed(0)  # the engine draws nothing: noise is given
-    shape = inputs.latent_shape(Geometry(traffic["frames"], traffic["height"], traffic["width"]),
-                                net["out_channels"])
+        marks = ForwardMarks(nets, window)
+    engine.sampler.step = window.wrap(engine.sampler.step, arch.step_view)
     request = 0
     try:
         while True:
-            noise = inputs.noise(seed, request, net, traffic, device=dev)
+            noise = arch.noise(cell, seed, request, dev)
             window.begin_request(noise)
-            engine.sample(gen, cond, uncond, batch_size=traffic["batch"], shape=shape,
-                          noise=noise)
+            arch.sample(engine, cell, cond, uncond, noise)
             request += 1
     except WindowClosed:
         pass
@@ -285,7 +248,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, *, trace_run: bool = False,
                          "kind": torch.cuda.get_device_name(dev) if cuda else dev.type,
                          "count": 1, "memory_peak_bytes": int(peak)}}
     if trace_run:
-        work = flops.step_work(net, traffic)
+        work = arch.step_work(cell)
         tr = trace.read_profile(traced[0].events()) if traced else None
         ctx = Readings(steps=steps, step_s=step_s, work=work, trace=tr,
                        forward_gaps_ms=marks.gaps_ms() if marks is not None else [])
@@ -297,15 +260,15 @@ def run_cell(cell: Cell, seed: int, seconds: float, *, trace_run: bool = False,
         result["metrics"] = metrics
         if tr is not None:
             result["device"].update(busy_s=tr.busy_s(), window_s=tr.window_s)
-            result["breakdown"] = tr.breakdown()
+            # the architecture's kernel groups, if any, before the frozen ones
+            result["breakdown"] = tr.breakdown(getattr(arch, "GROUPS", ()) + trace.GROUPS)
         traced.clear()
     else:
         result["metrics"] = {"denoise_step_s": {"value": step_s, "unit": "s"},
                              "setup_s": {"value": setup_s, "unit": "s"}}
 
     # the program's state goes before the reference runs
-    del dit
-    engine.dit = None
+    nets.clear()
     del engine
     gc.collect()
     if cuda:
@@ -315,7 +278,7 @@ def run_cell(cell: Cell, seed: int, seconds: float, *, trace_run: bool = False,
     compared, control_gaps = check.compare(cell, seed, window, pick, cond, uncond, dev, control)
     compared["launch_gap"] = {
         # the kernels run on the card only: a CPU run launches none
-        "value": check.launch_gap(launches, expected_launches(cell, steps if cuda else 0)),
+        "value": check.launch_gap(launches, arch.expected_launches(cell, steps if cuda else 0)),
         "limit": 0}
     log(f"reference step {window.steps[pick].step} of request {window.steps[pick].request}: "
         f"{time.perf_counter() - t0:.1f} s")

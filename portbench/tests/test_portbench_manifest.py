@@ -65,8 +65,12 @@ def test_names_units_and_keys(bench):
 
 
 def test_cells_in_the_issues_order(bench):
+    """The first cell stays first; every configuration's file exists and
+    every cell names a configuration, so an added configuration passes."""
     assert [w["name"] for w in bench["workloads"]][:1] == ["sample-1p3b-dense-81f"]
-    assert {c["name"] for c in bench["configs"]} == {"scail-1p3b", "scail-14b"}
+    for c in bench["configs"]:
+        assert (ROOT / c["file"]).is_file(), c["file"]
+    assert {w["config"] for w in bench["workloads"]} <= {c["name"] for c in bench["configs"]}
 
 
 @pytest.mark.parametrize("cell", ["sample-1p3b-dense-81f", "sample-14b-dense-81f",
@@ -79,7 +83,7 @@ def test_cell_found_by_name(cell, bench):
     assert c.traffic["frames"] == 81 and (c.traffic["height"], c.traffic["width"]) == (512, 896)
     assert c.limits is not None and set(c.limits) >= {"rel_l2", "worst_frame_rel_l2"}
     assert [m["name"] for m in c.end_to_end] == ["denoise_step_s", "setup_s"]
-    assert len(c.per_layer) == 6
+    assert len(c.per_layer) == sum(cell in m.get("workloads", ()) for m in bench["per_layer"])
     assert c.net["attn_impl"] == c.traffic["attn_impl"]
 
 

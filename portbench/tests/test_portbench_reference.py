@@ -49,34 +49,35 @@ def test_window_runs_its_steps_back_to_back():
     assert r["correct"] is True
 
 
-def _hook_dit(monkeypatch, hook):
-    real = harness.load_weights
+def _hook_dit(monkeypatch, cell, hook):
+    real = cell.arch.load_weights
 
     def load(engine, cell, seed):
-        dit = real(engine, cell, seed)
-        dit.register_forward_hook(hook)
-        return dit
-    monkeypatch.setattr(harness, "load_weights", load)
+        nets = real(engine, cell, seed)
+        for net in nets:
+            net.register_forward_hook(hook)
+        return nets
+    monkeypatch.setattr(cell.arch, "load_weights", load)
 
 
-def _unchanged(monkeypatch):
+def _unchanged(monkeypatch, cell):
     from scail_tpu_torch.diffusion.samplers import RFSampler
 
     monkeypatch.setattr(RFSampler, "step", lambda self, fn, x, *a, **kw: x.clone())
 
 
-def _half_batch(monkeypatch):
+def _half_batch(monkeypatch, cell):
     # the cond half of the CFG batch left out: the mean over the rest (the
     # uncond half) stands in for it
-    _hook_dit(monkeypatch, lambda m, a, out: out[:1].mean(0, keepdim=True).expand_as(out))
+    _hook_dit(monkeypatch, cell, lambda m, a, out: out[:1].mean(0, keepdim=True).expand_as(out))
 
 
-def _answer_altered(monkeypatch):
+def _answer_altered(monkeypatch, cell):
     def hook(m, a, out):
         out = out.clone()
         out[1, 2] = -out[1, 2]  # one latent frame of the cond half
         return out
-    _hook_dit(monkeypatch, hook)
+    _hook_dit(monkeypatch, cell, hook)
 
 
 @pytest.mark.parametrize("fault", [_unchanged, _half_batch, _answer_altered],
@@ -85,8 +86,9 @@ def _answer_altered(monkeypatch):
 def test_a_broken_timed_path_is_not_correct(fault, workload, monkeypatch):
     """Each fault a one-card cell can have (no exchange between chips exists
     here) makes `correct` false."""
-    fault(monkeypatch)
-    r = harness.run_cell(tiny_cell(workload), SEED, 0.0, device="cpu")
+    cell = tiny_cell(workload)
+    fault(monkeypatch, cell)
+    r = harness.run_cell(cell, SEED, 0.0, device="cpu")
     assert r["correct"] is False
 
 

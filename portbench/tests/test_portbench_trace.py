@@ -33,6 +33,12 @@ def test_union_and_gaps():
     assert tr.span_at(5.0) == "other"
 
 
+def test_an_architectures_groups_come_before_the_frozen_ones():
+    bd = _trace().breakdown((("self_attention", ("flash_fwd",)),) + trace.GROUPS)
+    assert bd["device_ops"][0] == ["group:self_attention", pytest.approx(1.2)]
+    assert _trace().breakdown() == _trace().breakdown(trace.GROUPS)
+
+
 def test_readers_on_a_synthetic_trace():
     cell = load_cell("sample-1p3b-dense-81f")
     work = flops.step_work(cell.net, cell.traffic)

@@ -1,6 +1,7 @@
 """A cell at a width a CPU test can hold, built from a real cell's files."""
 
 import copy
+import dataclasses
 
 from portbench import manifest
 
@@ -21,5 +22,5 @@ def tiny_cell(workload="sample-1p3b-dense-81f", *, dtype="float32", layers=2, hi
     traffic = dict(cell.traffic, frames=21, height=height or (512 if sta else 64), width=64,
                    text_tokens=8, clip_tokens=5)
     limits = limits or {"rel_l2": 1e-4, "worst_frame_rel_l2": 1e-4}
-    return manifest.Cell(name=f"tiny-{workload}", chips=1, config=cfg, traffic=traffic,
-                         limits=limits, end_to_end=cell.end_to_end, per_layer=cell.per_layer)
+    return dataclasses.replace(cell, name=f"tiny-{workload}", config=cfg, traffic=traffic,
+                               limits=limits)

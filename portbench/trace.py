@@ -5,7 +5,8 @@ memset the card runs in the window.  Busy time is the union of their
 intervals (not their sum), idle gaps its complement inside the window, each
 gap named by the benchmark's host span (`dit_forward`, `sampler`) that was
 open when it began.  GROUPS is a frozen copy of the port's kernel-name
-groups (its profile CLI), used for the breakdown.
+groups (its profile CLI), used for the breakdown after an architecture's
+own groups (portbench/arch), if it has any.
 """
 
 from __future__ import annotations
@@ -34,9 +35,9 @@ GROUPS = (("w8a16_matmul", ("w8a16_kernel",)),
 Interval = Tuple[float, float]
 
 
-def group_of(name: str) -> str:
+def group_of(name: str, groups=GROUPS) -> str:
     low = name.lower()
-    for group, keys in GROUPS:
+    for group, keys in groups:
         if any(k in low for k in keys):
             return group
     return "other"
@@ -95,15 +96,18 @@ class Trace:
                 return name
         return "other"
 
-    def breakdown(self, top: int = 5) -> Dict[str, List[list]]:
-        """The device operations that took most time, `top` groups then
-        `top` kernels, and the 2 * top longest idle gaps by host span."""
-        groups: Dict[str, float] = {}
+    def breakdown(self, groups=GROUPS, top: int = 5) -> Dict[str, List[list]]:
+        """The device operations that took most time, `top` groups (of
+        `groups`, first match wins) then `top` kernels, and the 2 * top
+        longest idle gaps by host span."""
+        by_group: Dict[str, float] = {}
         kernels: Dict[str, float] = {}
         for n, s, e in self.ops:
-            groups[group_of(n)] = groups.get(group_of(n), 0.0) + (e - s)
+            g = group_of(n, groups)
+            by_group[g] = by_group.get(g, 0.0) + (e - s)
             kernels[n] = kernels.get(n, 0.0) + (e - s)
-        ops = [[f"group:{g}", v] for g, v in sorted(groups.items(), key=lambda kv: -kv[1])[:top]]
+        ops = [[f"group:{g}", v]
+               for g, v in sorted(by_group.items(), key=lambda kv: -kv[1])[:top]]
         ops += [[n[:160], v] for n, v in sorted(kernels.items(), key=lambda kv: -kv[1])[:top]]
         gaps = sorted(self.gaps(), key=lambda g: g[0] - g[1])[:2 * top]
         return {"device_ops": ops, "idle_gaps": [[self.span_at(a), b - a] for a, b in gaps]}
